@@ -8,8 +8,11 @@ kernel against its plain PyTorch version.
 
 Phases (any failure ends the run with a non-zero exit):
   1. device: the card's name and power limit (nvidia-smi);
-  2. kernels: build ``csrc/ssim.cu`` and hold the SSIM kernel against the
-     plain ``ops.metrics.ssim_volume`` for win 3/5/7/11 on three shapes;
+  2. kernels: build ``csrc/ssim.cu``; check its branch-free division by
+     the window against IEEE division for every float32 input; hold the
+     SSIM kernel against the plain ``ops.metrics.ssim_volume`` for win
+     3/5/7/11 on the shapes of ``KERNEL_SHAPES`` and on a pair of
+     phantom volumes (flat patches, all-zero end slices);
   3. serve: the bench config (width 64, latent_width 16, depth 32,
      latent 128, BN, sigmoid, bfloat16 compute) with seeded random
      weights; 30 kept slices of a seeded 175 x 220 x 220 phantom at
@@ -18,7 +21,9 @@ Phases (any failure ends the run with a non-zero exit):
   4. score: ``compute_volume_metrics`` on the card (SSIM through the
      CUDA kernel), against the same call on the CPU;
   5. timings from CUDA events after warm-up, beside the card's name and
-     power limit.
+     power limit; the kernel both back to back (``ms``, inputs partly in
+     the 50 MB L2) and with a 256 MB scratch write before each launch
+     (``ms_cold``).
 The main path (serve linear → score) runs with every kernel launch count
 set to 0 just before it and read just after. The line before the last
 lists every kernel with its check, launches and times; the last line is
@@ -37,10 +42,12 @@ HW, LR_SLICES, DS = 220, 30, 6
 HR_SLICES = (LR_SLICES - 1) * DS + 1          # 175
 BENCH_CFG = dict(width=64, latent_width=16, depth=32, latent=128, colors=1,
                  use_batchnorm=True, use_sigmoid=True)
-KERNEL_SHAPES = ((HR_SLICES, HW, HW), (8, 256, 256), (5, 129, 97))
+KERNEL_SHAPES = ((HR_SLICES, HW, HW), (8, 256, 256), (5, 129, 97),
+                 (3, 64, 1500))            # + the phantom pair, (S, 220, 220)
 KERNEL_ATOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+L2_FLUSH_BYTES = 256 << 20    # > 5x the H100's 50 MB L2
 
 
 def log(msg: str) -> None:
@@ -134,6 +141,27 @@ def call_times_s(fn, iters: int) -> list:
     return times
 
 
+def cold_ms(fn, iters: int) -> float:
+    """Median milliseconds of one call from CUDA events, with a
+    ``L2_FLUSH_BYTES`` scratch write before each, so the call finds its
+    inputs in device memory and not in L2."""
+    import torch
+
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    fn()
+    times = []
+    for i in range(iters):
+        scratch.fill_(float(i))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
 def ssim_bound(shape, win: int) -> tuple:
     """(bound_ms, bound_by) for per-slice SSIM: inputs read once and the
     [S] output written once over HBM bandwidth, against the float32
@@ -148,8 +176,9 @@ def ssim_bound(shape, win: int) -> tuple:
 
 
 def check_kernels(dev) -> dict:
-    """Phase 2: build the SSIM kernel and hold it against the plain
-    version on the card; returns the largest error seen."""
+    """Phase 2: build the SSIM kernel, check its division by the window
+    exhaustively, and hold the kernel against the plain version on the
+    card; returns the largest error seen."""
     import torch
 
     from superresolution_aniso_mri_tpu_torch.ops import _build, cuda_kernels
@@ -161,13 +190,23 @@ def check_kernels(dev) -> dict:
     for line in _build.build_log("ssim", cuda_kernels._SSIM_FLAGS).splitlines():
         if "ptxas" in line or "nvcc" in line or "spill" in line:
             log(f"  {line.strip()}")
+    for win in cuda_kernels.SSIM_WINDOWS:
+        bad = cuda_kernels.window_division_mismatches(win, dev)
+        log(f"kernel division by {win}: mismatches against IEEE over all "
+            f"finite float32 inputs: {bad[0]}")
+        if bad[0]:
+            raise AssertionError(f"division by {win} differs from IEEE "
+                                 f"division, first at bits {bad[1]:#010x}")
     gen = torch.Generator(device=dev).manual_seed(0)
+    cases = [(shape, smooth_pair(shape, gen, dev)) for shape in KERNEL_SHAPES]
+    cases.append(("phantom", tuple(torch.from_numpy(phantom(i)).to(dev)
+                                   for i in (0, 1))))
     worst = 0.0
-    for shape in KERNEL_SHAPES:
-        a, b = smooth_pair(shape, gen, dev)
+    for shape, (a, b) in cases:
         for win in cuda_kernels.SSIM_WINDOWS:
             got = cuda_kernels.ssim_volume_cuda(a, b, 1.0, win)
             want = ssim_volume(a, b, 1.0, win)
+            again = cuda_kernels.ssim_volume_cuda(a, b, 1.0, win)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             worst = max(worst, err)
@@ -177,6 +216,9 @@ def check_kernels(dev) -> dict:
                 raise AssertionError(
                     f"SSIM kernel disagrees with the plain version at "
                     f"{shape} win={win}: {err:.3e} > {KERNEL_ATOL}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"SSIM kernel is not deterministic at "
+                                     f"{shape} win={win}")
     return {"max_abs_err": worst}
 
 
@@ -323,10 +365,15 @@ def main() -> int:
     a = torch.from_numpy(hr).to(dev)
     b = torch.from_numpy(res["upsampled_image"]).to(dev)
     kernel_ms = cuda_ms(lambda: cuda_kernels.ssim_volume_cuda(a, b, 1.0, 7), 50)
+    kernel_cold_ms = cold_ms(
+        lambda: cuda_kernels.ssim_volume_cuda(a, b, 1.0, 7), 30)
     plain_ms = cuda_ms(lambda: ssim_volume(a, b, 1.0, 7), 20)
     bound_ms, bound_by = ssim_bound(tuple(a.shape), 7)
-    timings.update(ssim_kernel_us=kernel_ms * 1e3, ssim_plain_us=plain_ms * 1e3,
-                   ssim_bound_us=bound_ms * 1e3)
+    timings.update(ssim_kernel_us=kernel_ms * 1e3,
+                   ssim_kernel_cold_us=kernel_cold_ms * 1e3,
+                   ssim_plain_us=plain_ms * 1e3, ssim_bound_us=bound_ms * 1e3,
+                   ssim_bound_share=bound_ms / kernel_ms,
+                   ssim_bound_share_cold=bound_ms / kernel_cold_ms)
     log(f"timings [{card}]: " + json.dumps(timings))
 
     if args.profile:
@@ -342,8 +389,10 @@ def main() -> int:
         "replaces": "superresolution_aniso_mri_tpu/ops/pallas_kernels.py:43",
         "launches": launches["ssim_slice"],
         "max_abs_err": kcheck["max_abs_err"], "ok": True,
-        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None,
+        "ms": kernel_ms, "ms_cold": kernel_cold_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "bound_share": bound_ms / kernel_ms,
+        "bound_share_cold": bound_ms / kernel_cold_ms,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

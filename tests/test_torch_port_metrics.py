@@ -37,17 +37,38 @@ def _t(x):
     return torch.from_numpy(np.ascontiguousarray(x))
 
 
-@pytest.mark.parametrize("win", [3, 5, 7, 11])
-def test_ssim_matches_jax_and_pallas_interpret(win):
-    a, b = _pair()
-    a[1] = 0.5           # a flat slice: the E[x^2] - mu^2 form at its limit
-    b[1] = 0.5
+def _flat_patch_pair():
+    """Flat patches shared by both images (0.35, 0.9 and 0 areas), a
+    textured corner, and an all-zero slice."""
+    a, b = _pair(8, shape=(3, 30, 34))
+    a[:, :10], b[:, :10] = 0.9, 0.9
+    a[:, 10:20, :12], b[:, 10:20, :12] = 0.35, 0.35
+    a[:, :, 26:], b[:, :, 26:] = 0.0, 0.0
+    a[0], b[0] = 0.0, 0.0
+    return a, b
+
+
+@pytest.mark.parametrize("win, case", [
+    (3, "smooth"), (5, "smooth"), (7, "smooth"), (11, "smooth"),
+    (7, "flat_patch"), (11, "flat_patch"),
+    (3, "win_sized"), (5, "win_sized"), (7, "win_sized"), (11, "win_sized"),
+], ids=["3", "5", "7", "11", "flat_patch-7", "flat_patch-11", "win_sized-3",
+        "win_sized-5", "win_sized-7", "win_sized-11"])
+def test_ssim_matches_jax_and_pallas_interpret(win, case):
+    if case == "flat_patch":
+        a, b = _flat_patch_pair()
+    elif case == "win_sized":   # h = w = win: a 1 x 1 map per slice
+        a, b = _pair(9, shape=(4, win, win))
+    else:
+        a, b = _pair()
+        a[1] = 0.5       # a flat slice: the E[x^2] - mu^2 form at its limit
+        b[1] = 0.5
     want = np.asarray(jm.ssim_volume(jnp.asarray(a), jnp.asarray(b), 1.0,
                                      win))
     pallas = np.asarray(ssim_volume_pallas(jnp.asarray(a), jnp.asarray(b),
                                            1.0, win, interpret=True))
     got = tm.ssim_volume(_t(a), _t(b), 1.0, win).numpy()
-    assert got.shape == (4,) and got.dtype == np.float32
+    assert got.shape == a.shape[:1] and got.dtype == np.float32
     np.testing.assert_allclose(got, want, atol=1e-5)
     np.testing.assert_allclose(got, pallas, atol=1e-5)
     fused = cuda_kernels.ssim_volume_fused(_t(a), _t(b), 1.0, win).numpy()
