@@ -5,6 +5,7 @@ kernel against its plain PyTorch version.
 
     python3 chip_smoke.py                        # one card, no arguments
     python3 chip_smoke.py --profile out/prof.txt # + trace one serve+score
+                                                 # and one train step
 
 Phases (any failure ends the run with a non-zero exit):
   1. device: the card's name and power limit (nvidia-smi);
@@ -20,12 +21,21 @@ Phases (any failure ends the run with a non-zero exit):
      4 single calls; bf16 against f32; card against CPU on a small crop;
   4. score: ``compute_volume_metrics`` on the card (SSIM through the
      CUDA kernel), against the same call on the CPU;
-  5. timings from CUDA events after warm-up, beside the card's name and
+  5. train: the README's OASIS recipe at full width (float32,
+     ae_combined, MSE mix loss, ex_loss_weight1 0.001, lr 1e-5, 16 pairs
+     of 64² patches from four seeded phantoms through TripletSampler,
+     the deterministic augment_batch and prepare_batch_pairs, ds=4):
+     30 steps on one batch must lower loss_ae; 5 steps of a small config
+     on the card against the CPU; a 2-epoch Trainer run writes the
+     experiment files; its caisr.models is served (ds=6) and scored on
+     the card; train ms/step, steps/s and peak memory;
+  6. timings from CUDA events after warm-up, beside the card's name and
      power limit; the kernel both back to back (``ms``, inputs partly in
      the 50 MB L2) and with a 256 MB scratch write before each launch
      (``ms_cold``).
 The main path (serve linear → score) runs with every kernel launch count
-set to 0 just before it and read just after. The line before the last
+set to 0 just before it and read just after; so does the train phase's
+path (serve the trained checkpoint → score). The line before the last
 lists every kernel with its check, launches and times; the last line is
 the device summary.
 """
@@ -48,6 +58,14 @@ KERNEL_ATOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 L2_FLUSH_BYTES = 256 << 20    # > 5x the H100's 50 MB L2
+# train phase: the README's OASIS recipe (train_brain_aesr.py) at full width
+TRAIN_ARGS = dict(model="ae_combined", dataset="OASIS", **BENCH_CFG,
+                  compute_dtype="float32", image_mix_loss_func="mse",
+                  ex_loss_weight1=0.001, lr=1e-5, batch_size=16,
+                  downsample_steps=4, slice_selection="adjacent_plus")
+TRAIN_PATCH, TRAIN_DS, TRAIN_LEARN_STEPS = 64, 4, 30
+SMALL_CFG = dict(width=32, latent_width=8, depth=4, latent=6, colors=1,
+                 use_batchnorm=True, use_sigmoid=True)
 
 
 def log(msg: str) -> None:
@@ -233,6 +251,280 @@ def check_volume(vol: np.ndarray, what: str) -> None:
                              f"[{vol.min()}, {vol.max()}]")
 
 
+def train_data(seed: int, patch: int, pairs: int, batches: int,
+               device) -> list:
+    """``batches`` train batches of ``pairs`` pairs from four seeded
+    phantoms: TripletSampler(pad 220) → the deterministic augment_batch
+    (center crop 220, then ``patch``) → prepare_batch_pairs, on
+    ``device``. Returns (raw numpy batches, device batches, aug config)."""
+    from superresolution_aniso_mri_tpu_torch.data import (
+        AugmentConfig, TripletSampler, Volume, device_batch)
+
+    vols = [Volume(image=phantom(seed + 100 + i),
+                   spacing=np.array([1.0, 1.0, 1.0])) for i in range(4)]
+    sampler = TripletSampler(vols, TRAIN_DS, "adjacent_plus", pad_size=HW,
+                             seed=seed)
+    aug = AugmentConfig(patch_size=patch, aug_patch_size=HW,
+                        random_crop=False, rot90=False, intensity=False)
+    raw = [sampler.sample_batch(pairs) for _ in range(batches)]
+    return raw, [device_batch(r, aug, device) for r in raw], aug
+
+
+def _finite(metrics: dict, what: str) -> None:
+    vals = {k: np.asarray(v) for k, v in metrics.items()}
+    bad = [k for k, v in vals.items() if not np.isfinite(v).all()]
+    if bad:
+        raise AssertionError(f"{what}: non-finite metrics {bad}")
+
+
+def check_train(dev, seed: int, hr: np.ndarray, serve_kw: dict, card: str,
+                profile_path) -> dict:
+    """Phase 5 (see the module docstring); returns the train path's SSIM
+    launches and the train timings."""
+    import tempfile
+
+    import torch
+
+    from superresolution_aniso_mri_tpu_torch.evaluate import (
+        compute_volume_metrics)
+    from superresolution_aniso_mri_tpu_torch.infer import (
+        ServingModel, create_super_volume)
+    from superresolution_aniso_mri_tpu_torch.models import (
+        AEConfig, VanillaACAI, flax_to_torch)
+    from superresolution_aniso_mri_tpu_torch.ops import cuda_kernels
+    from superresolution_aniso_mri_tpu_torch.train import (
+        Trainer, create_train_state, load_checkpoint_raw,
+        loss_config_from_args, make_train_step)
+    from superresolution_aniso_mri_tpu_torch.data import device_batch
+
+    t0 = time.perf_counter()
+    pairs = TRAIN_ARGS["batch_size"]
+    raw, batches, aug = train_data(seed, TRAIN_PATCH, pairs, 3, dev)
+    b = batches[0]
+    log(f"train: data {time.perf_counter() - t0:.1f} s; image "
+        f"{list(b['image'].shape)}, slice_between "
+        f"{list(b['slice_between'].shape)}")
+    cfg = AEConfig(**BENCH_CFG, compute_dtype="float32")
+    loss_cfg = loss_config_from_args(TRAIN_ARGS)
+    step = make_train_step(loss_cfg)
+    mix = TRAIN_ARGS["ex_loss_weight1"]
+
+    def fresh_state(config, device, gen_seed):
+        model = VanillaACAI(config)
+        model.reset_parameters(torch.Generator().manual_seed(gen_seed))
+        return create_train_state(model.to(device), TRAIN_ARGS["lr"])
+
+    # it learns: 30 steps on one repeated batch
+    state = fresh_state(cfg, dev, seed)
+    seen = []
+    for _ in range(TRAIN_LEARN_STEPS):
+        state, m = step(state, b, mix)
+        seen.append(m)
+    stacked = {k: torch.stack([m[k] for m in seen]).cpu().numpy()
+               for k in seen[0]}
+    _finite(stacked, "train")
+    first, last = float(stacked["loss_ae"][0]), float(stacked["loss_ae"][-1])
+    log(f"train: {TRAIN_LEARN_STEPS} steps on one batch, loss_ae "
+        f"{first:.6f} → {last:.6f}, metrics {sorted(stacked)}")
+    if not last < first:
+        raise AssertionError(f"training did not lower loss_ae: {first} → "
+                             f"{last}")
+
+    # card against CPU: 5 steps of a small config from the same weights
+    small = AEConfig(**SMALL_CFG)
+    _, small_batches, _ = train_data(seed + 1, SMALL_CFG["width"], 4, 5, dev)
+    card_state = fresh_state(small, dev, seed + 1)
+    cpu_state = fresh_state(small, "cpu", seed + 1)
+    worst_loss = 0.0
+    for sb in small_batches:
+        card_state, cm = step(card_state, sb, mix)
+        cpu_state, hm = step(cpu_state, {k: v.cpu() for k, v in sb.items()},
+                             mix)
+        for k in hm:
+            rel = abs(float(cm[k]) - float(hm[k])) / max(abs(float(hm[k])),
+                                                         1e-12)
+            worst_loss = max(worst_loss, rel)
+    drift = max(float((p.detach().cpu() - q.detach()).abs().max())
+                for p, q in zip(card_state.model.parameters(),
+                                cpu_state.model.parameters()))
+    bound = 2 * TRAIN_ARGS["lr"] * len(small_batches)
+    log(f"train: card vs CPU, {len(small_batches)} steps of {SMALL_CFG}: "
+        f"max rel loss diff {worst_loss:.3e} (limit 1e-4), max param diff "
+        f"{drift:.3e} (limit 2·lr·steps = {bound:.1e})")
+    if not worst_loss <= 1e-4 or not drift <= bound:
+        raise AssertionError("card and CPU training differ")
+
+    # a 2-epoch Trainer run into an experiment directory
+    with tempfile.TemporaryDirectory() as out:
+        trainer = Trainer(dict(TRAIN_ARGS, epochs=2, epoch_threshold=0,
+                               output_dir=out, seed=seed), device=dev)
+        trainer.prepare_run()
+        for _ in range(2):
+            for tb in batches[:2]:
+                trainer.train(tb)
+            trainer.validate(batches[2])
+            trainer.show_loss_on_tensorboard("train")
+            trainer.show_loss_on_tensorboard("test")
+            trainer.reset_losses()
+            trainer.end_epoch_processing()
+        models = sorted(os.listdir(os.path.join(out, "models")))
+        files = sorted(f for f in os.listdir(out) if f.endswith(".npz"))
+        log(f"train: Trainer wrote models/{models} and {files}")
+        want = ["1.models", "ae.models", "caisr.models", "last.models"]
+        if models != want or files != ["loss_iters.npz", "losses_test.npz",
+                                       "losses_train.npz"]:
+            raise AssertionError(f"Trainer files: {models} {files}")
+        again = Trainer(dict(TRAIN_ARGS, output_dir=out), device=dev,
+                        seed=seed + 7)
+        again.load(os.path.join(out, "models", "last.models"))
+        same = all(torch.equal(again.model.state_dict()[k], v)
+                   for k, v in trainer.model.state_dict().items())
+        log(f"train: last.models reloads to the same tensors: {same}; "
+            f"epoch {again.epoch}")
+        if not same or again.epoch != 2:
+            raise AssertionError("last.models does not reload")
+        raw_ckpt = load_checkpoint_raw(os.path.join(out, "models",
+                                                    "caisr.models"))
+
+    # the trained checkpoint through the port's serve → score path
+    served = ServingModel(cfg, flax_to_torch(raw_ckpt["model_dict_ae"],
+                                             raw_ckpt["batch_stats"], cfg),
+                          device=dev)
+    cuda_kernels.reset_launch_counts()
+    res = create_super_volume(served, hr, **serve_kw)
+    scores = compute_volume_metrics(hr, res["upsampled_image"],
+                                    downsample_steps=DS, device=dev)
+    launches = dict(cuda_kernels.LAUNCHES)
+    check_volume(res["upsampled_image"], "serve trained checkpoint")
+    _finite(scores, "scores of the trained checkpoint")
+    log(f"train → serve → score launches: {json.dumps(launches)}; scores "
+        + json.dumps({k: round(v, 6) for k, v in scores.items()}))
+    if launches["ssim_slice"] < 1:
+        raise AssertionError("the SSIM kernel was not launched on the "
+                             "train → serve → score path")
+
+    # timings: upload + augment + split + step, CUDA events
+    timed = fresh_state(cfg, dev, seed)
+
+    def one_step():
+        step(timed, device_batch(raw[0], aug, dev), mix)
+
+    for _ in range(3):
+        one_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, host = [], []
+    for _ in range(20):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t_host = time.perf_counter()
+        one_step()
+        host.append((time.perf_counter() - t_host) * 1e3)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = float(np.median(times))
+    # host_ms: the host's time to issue one step (its upload waits for
+    # the copy); near ms, the host sets the pace, not the card
+    out = {"train_ms_per_step": ms, "train_ms_min": float(np.min(times)),
+           "train_host_ms_per_step": float(np.median(host)),
+           "train_steps_per_s": 1e3 / ms,
+           "train_peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "train_pairs_per_step": pairs, "launches": launches}
+    log(f"train timings [{card}]: " + json.dumps(
+        {k: v for k, v in out.items() if k != "launches"}))
+    if profile_path:
+        profile_train_step(one_step, ms, profile_path)
+    return out
+
+
+def _kernel_kind(name: str) -> str:
+    """Bucket of a device event by its kernel name."""
+    low = name.lower()
+    if low.startswith(("memcpy", "memset")):
+        return "copies"
+    if "multi_tensor_apply" in low:
+        return "optimizer"
+    if "reduce_kernel" in low:
+        return "reductions"
+    if "pool" in low or "upsample" in low:
+        return "pool_upsample"
+    if "elementwise" in low or "cat" in low:
+        return "elementwise"
+    if any(t in low for t in ("xmma", "gemm", "fft", "dse::", "grad",
+                              "conv", "cudnn", "nchw", "nhwc", "region_",
+                              "complex")):
+        return "convolutions"
+    return "other"
+
+
+def profile_train_step(one_step, wall_ms: float, path: str) -> None:
+    """Trace one warm train step (upload included); print kernel time by
+    kind, the convolutions split into forward and backward by their aten
+    op, the device-side span of the BatchNorm forward calls (a range
+    around each call: its kernels, which also sit in their kinds, and
+    the gaps between them), and the device idle share against
+    ``wall_ms``, the untraced median step. The table goes to
+    ``path + ".train.txt"``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from superresolution_aniso_mri_tpu_torch.models import acai
+
+    forward = acai.BatchNorm.forward
+
+    def traced(self, *a, **kw):
+        with record_function("BatchNorm.forward"):
+            return forward(self, *a, **kw)
+
+    acai.BatchNorm.forward = traced
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            one_step()
+            torch.cuda.synchronize()
+    finally:
+        acai.BatchNorm.forward = forward
+    events = prof.key_averages()
+    self_attr = ("self_device_time_total"
+                 if hasattr(events[0], "self_device_time_total")
+                 else "self_cuda_time_total")
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def device_ms(match) -> float:
+        return sum(getattr(e, self_attr) for e in events if match(e)) / 1e3
+
+    # device rows that are not kernels: the profiler's own buffer, and
+    # the device-side span of each BatchNorm range (idle gaps included)
+    kernels = [e for e in events if e.device_type == cuda and e.key not in
+               ("Activity Buffer Request", "BatchNorm.forward")]
+    kinds: dict = {}
+    for e in kernels:
+        kind = _kernel_kind(e.key)
+        kinds[kind] = kinds.get(kind, 0.0) + getattr(e, self_attr) / 1e3
+    busy = sum(kinds.values())
+    split = {"conv_fwd": device_ms(lambda e: e.key.startswith(
+                 "aten::cudnn_convolution")),
+             "conv_bwd": device_ms(lambda e: e.key ==
+                                   "aten::convolution_backward"),
+             "batchnorm_fwd_span": device_ms(
+                 lambda e: e.key == "BatchNorm.forward"
+                 and e.device_type == cuda)}
+    table = events.table(sort_by=self_attr, row_limit=50)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path + ".train.txt", "w") as f:
+        f.write(table)
+    log("profile train step: device ms by kernel kind " + json.dumps(
+        {k: round(v, 4) for k, v in sorted(kinds.items())})
+        + "; by op " + json.dumps({k: round(v, 4) for k, v in split.items()})
+        + f"; {sum(e.count for e in kernels)} device events, busy "
+        f"{busy:.4f} ms of an untraced {wall_ms:.4f} ms step, idle share "
+        f"{1 - busy / wall_ms:.3f}")
+    for line in table.splitlines()[:30]:
+        log(f"  {line[:160]}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="PATH",
@@ -349,7 +641,10 @@ def main() -> int:
     if abs(self_ssim - 1.0) >= 1e-3:
         raise AssertionError(f"SSIM self-check failed: {self_ssim}")
 
-    # ---- 5. timings --------------------------------------------------
+    # ---- 5. train -----------------------------------------------------
+    train = check_train(dev, args.seed, hr, serve_kw, card, args.profile)
+
+    # ---- 6. timings --------------------------------------------------
     timings = {}
     for name, kw in (("linear", {}), ("lanczos3", {"latent_interp": "lanczos3"})):
         ts = call_times_s(lambda: create_super_volume(model, hr, **serve_kw,

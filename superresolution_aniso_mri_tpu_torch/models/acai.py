@@ -1,10 +1,12 @@
-"""ACAI-style convolutional autoencoder, NCHW, eval mode.
+"""ACAI-style convolutional autoencoder, NCHW.
 
 Port of ``superresolution_aniso_mri_tpu/models/acai.py`` (``Encoder``,
-``Decoder``, ``VanillaACAI``, ``ResBlock``) for serving: BatchNorm uses
-its running statistics. Training (train-mode BatchNorm, the ACAI
-``Discriminator``, ``lerp``, ``swap_halves``) comes with the training
-slice.
+``Decoder``, ``VanillaACAI``, ``ResBlock``). ``train=False`` (serving)
+normalises with the BatchNorm running statistics; ``train=True``
+normalises with the batch's statistics and, unless ``update_stats`` is
+False, advances the running statistics once, as flax's ``BatchNorm``
+with ``mutable=["batch_stats"]`` does. The ACAI ``Discriminator``,
+``lerp`` and ``swap_halves`` belong to the acai family (ROADMAP item 9).
 
 Precision follows the reference's mixed-precision rule exactly, with
 explicit casts rather than autocast: parameters are float32; each conv
@@ -69,9 +71,16 @@ class ConvTranspose(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm with flax's arithmetic: ``(x - mean) *
-    (rsqrt(var + eps) * scale) + bias`` in float32, cast back to the
-    input dtype."""
+    """BatchNorm with flax's arithmetic: ``(x - mean) * (rsqrt(var + eps)
+    * scale) + bias`` in float32, cast back to the input dtype.
+
+    In train mode the statistics are flax's, not ``F.batch_norm``'s:
+    reduced in float32 (also for bfloat16 activations), the fast
+    variance ``max(0, E[x^2] - E[x]^2)`` (biased), gradients through
+    both; the running statistics move as ``ra = 0.9 * ra + 0.1 * batch``
+    with the biased variance."""
+
+    momentum = 0.9
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -81,11 +90,24 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
         self.eps = eps
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                update_stats: bool = True) -> torch.Tensor:
         shape = (1, -1, 1, 1)
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = ((x.float() - self.running_mean.view(shape)) * mul.view(shape)
-             + self.bias.view(shape))
+        xf = x.float()
+        if train:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3))
+                                  - mean * mean, 0.0)
+            if update_stats:
+                with torch.no_grad():
+                    for ra, stat in ((self.running_mean, mean),
+                                     (self.running_var, var)):
+                        ra.mul_(self.momentum).add_(
+                            stat.detach() * (1.0 - self.momentum))
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         return y.to(x.dtype)
 
 
@@ -124,7 +146,8 @@ class Encoder(nn.Module):
         self.bns = nn.ModuleList(bns)
         self.head = Conv(k, cfg.latent, 3)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                update_stats: bool = True) -> torch.Tensor:
         cfg = self.config
         x = x.to(cfg.dtype)
         if cfg.stem_pad_parity:
@@ -134,7 +157,7 @@ class Encoder(nn.Module):
             x = _leaky(self.convs[2 * scale](x))
             x = _leaky(self.convs[2 * scale + 1](x))
             if cfg.use_batchnorm:
-                x = self.bns[scale](x)
+                x = self.bns[scale](x, train, update_stats)
             x = F.avg_pool2d(x, 2)
         if len(self.res):
             for blk in self.res:
@@ -171,7 +194,8 @@ class Decoder(nn.Module):
         self.ups = nn.ModuleList(ups)
         self.out = Conv(cfg.depth, cfg.colors, 3)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
+    def forward(self, z: torch.Tensor, train: bool = False,
+                update_stats: bool = True) -> torch.Tensor:
         cfg = self.config
         x = z.to(cfg.dtype)
         if len(self.res):
@@ -182,7 +206,7 @@ class Decoder(nn.Module):
             x = _leaky(self.convs[2 * i](x))
             x = _leaky(self.convs[2 * i + 1](x))
             if cfg.use_batchnorm:
-                x = self.bns[i](x)
+                x = self.bns[i](x, train, update_stats)
             if self.use_upsample:
                 x = F.interpolate(x, scale_factor=2, mode="nearest")
             else:
@@ -196,7 +220,8 @@ class Decoder(nn.Module):
 
 class VanillaACAI(nn.Module):
     """encode / decode / forward facade over ``Encoder`` and ``Decoder``.
-    Inputs are NCHW float tensors; outputs float32."""
+    Inputs are NCHW float tensors; outputs float32. ``train`` and
+    ``update_stats`` go to every BatchNorm (see ``BatchNorm``)."""
 
     def __init__(self, config: AEConfig):
         super().__init__()
@@ -204,14 +229,16 @@ class VanillaACAI(nn.Module):
         self.enc = Encoder(config)
         self.dec = Decoder(config)
 
-    def encode(self, x: torch.Tensor) -> torch.Tensor:
-        return self.enc(x)
+    def encode(self, x: torch.Tensor, train: bool = False,
+               update_stats: bool = True) -> torch.Tensor:
+        return self.enc(x, train, update_stats)
 
-    def decode(self, z: torch.Tensor) -> torch.Tensor:
-        return self.dec(z)
+    def decode(self, z: torch.Tensor, train: bool = False,
+               update_stats: bool = True) -> torch.Tensor:
+        return self.dec(z, train, update_stats)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.decode(self.encode(x))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.decode(self.encode(x, train), train)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:

@@ -171,3 +171,50 @@ def test_serve_and_score_on_card_match_cpu(cuda):
     for key in on_cpu:
         np.testing.assert_allclose(on_card[key], on_cpu[key], rtol=1e-5,
                                    atol=1e-6, err_msg=key)
+
+
+def test_train_steps_on_card_match_cpu(cuda):
+    """3 float32 train steps (TF32 off) of a small ae_combined config with
+    lanczos3 latent mixing and the lap loss, from the same weights and
+    batches: every metric within rel 1e-4, parameters within 2·lr·steps
+    (cuDNN's backward passes are not deterministic, so no bitwise
+    check), BatchNorm statistics within 1e-4."""
+    from superresolution_aniso_mri_tpu_torch.models import (AEConfig,
+                                                            VanillaACAI)
+    from superresolution_aniso_mri_tpu_torch.train import (
+        LossConfig, create_train_state, make_train_step)
+
+    lr, steps = 1e-4, 3
+    cfg = AEConfig(width=32, latent_width=8, depth=4, latent=6)
+    states = []
+    for dev in (cuda, torch.device("cpu")):
+        model = VanillaACAI(cfg)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        states.append(create_train_state(model.to(dev), lr))
+    step = make_train_step(LossConfig(model="ae_combined",
+                                      image_mix_loss_func="mse",
+                                      use_laploss=True,
+                                      train_latent_interp="lanczos3"))
+    rng = np.random.RandomState(0)
+    for _ in range(steps):
+        a_to = rng.uniform(0.1, 0.9, 2).astype(np.float32)
+        batch = {k: torch.from_numpy(v) for k, v in (
+            ("image", rng.rand(4, 1, 32, 32).astype(np.float32)),
+            ("slice_between", rng.rand(2, 1, 32, 32).astype(np.float32)),
+            ("outer", rng.rand(4, 1, 32, 32).astype(np.float32)),
+            ("outer2", rng.rand(4, 1, 32, 32).astype(np.float32)),
+            ("alpha_from", 1 - a_to), ("alpha_to", a_to),
+            ("is_inbetween", np.array([1.0, 0.0], np.float32)))}
+        _, got = step(states[0], {k: v.to(cuda) for k, v in batch.items()},
+                      0.3)
+        _, want = step(states[1], batch, 0.3)
+        for k in want:
+            assert got[k].device.type == "cuda"
+            np.testing.assert_allclose(float(got[k]), float(want[k]),
+                                       rtol=1e-4, err_msg=k)
+    card, cpu = (dict(s.model.state_dict()) for s in states)
+    for k, v in cpu.items():
+        diff = float((card[k].cpu() - v).abs().max())
+        limit = 1e-4 * max(1.0, float(v.abs().max())) if "running" in k \
+            else 2 * lr * steps
+        assert diff <= limit, (k, diff)

@@ -327,10 +327,13 @@ def test_entry_points_default_to_cuda(monkeypatch):
 def test_port_imports_without_jax():
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
-            "sys.modules['flax'] = None\n"
+            "for name in ('flax', 'optax', 'msgpack', 'yaml'):\n"
+            "    sys.modules[name] = None\n"
             "import superresolution_aniso_mri_tpu_torch.evaluate\n"
             "import superresolution_aniso_mri_tpu_torch.infer\n"
             "import superresolution_aniso_mri_tpu_torch.ops.cuda_kernels\n"
+            "import superresolution_aniso_mri_tpu_torch.train\n"
+            "import superresolution_aniso_mri_tpu_torch.data\n"
             "bad = [m for m in sys.modules if m == "
             "'superresolution_aniso_mri_tpu' or m.startswith("
             "'superresolution_aniso_mri_tpu.')]\n"
@@ -343,7 +346,7 @@ def test_port_imports_without_jax():
 def test_port_sources_import_nothing_of_the_jax_package():
     pattern = re.compile(
         r"^\s*(from|import)\s+(superresolution_aniso_mri_tpu(\.|\s|$)|jax\b"
-        r"|flax\b)", re.M)
+        r"|flax\b|optax\b|msgpack\b|yaml\b)", re.M)
     scanned = []
     for root, _dirs, files in os.walk(PORT_PKG):
         for name in files:
@@ -356,4 +359,5 @@ def test_port_sources_import_nothing_of_the_jax_package():
                 assert not hits, f"{path}: {hits}"
     with open(os.path.join(REPO, "chip_smoke.py")) as f:
         assert not pattern.search(f.read())
-    assert "super_volume.py" in scanned and "metrics.py" in scanned
+    assert {"super_volume.py", "metrics.py", "trainer.py", "steps.py",
+            "checkpoint.py", "msgpack.py", "pairs.py"} <= set(scanned)
