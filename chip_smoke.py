@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: serve and score
-a full-width OASIS ae_combined volume, and hold every hand-written
-kernel against its plain PyTorch version.
+a full-width OASIS ae_combined volume, train it, run the experiment-
+directory commands of the README quick start, and hold every
+hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py                        # one card, no arguments
     python3 chip_smoke.py --profile out/prof.txt # + trace one serve+score
@@ -32,12 +33,24 @@ Phases (any failure ends the run with a non-zero exit):
   6. timings from CUDA events after warm-up, beside the card's name and
      power limit; the kernel both back to back (``ms``, inputs partly in
      the 50 MB L2) and with a 256 MB scratch write before each launch
-     (``ms_cold``).
+     (``ms_cold``);
+  7. experiment-directory CLIs (``cli/entry.py``, in-process, in a temp
+     dir): train-brain, the README quick start (MNIST3D, synthetic data,
+     ae_combined, MSE mix loss, ds=6, 2 epochs of 16 pairs) at the bench
+     config's widths in float32, checked for its experiment files and
+     its settings.yaml; generate-hr-volumes of the phantom's 30 kept
+     slices (6 mm) into 175 slices (1 mm), with read, synthesis and
+     write timed apart; find-best-model plain and ``--batched`` with the
+     SSIM launches counted (4 and 2) and their scores held together;
+     serve-hr-volumes ``--once`` over two volumes with a manifest; and a
+     small experiment trained on the card, densified on the card and on
+     the CPU.
 The main path (serve linear → score) runs with every kernel launch count
-set to 0 just before it and read just after; so does the train phase's
-path (serve the trained checkpoint → score). The line before the last
-lists every kernel with its check, launches and times; the last line is
-the device summary.
+set to 0 just before it and read just after; so do the train phase's
+path (serve the trained checkpoint → score) and each find-best sweep of
+phase 7. The line before the last lists every kernel with its check,
+launches (``launches``: the main path; ``launches_by_path``: every
+counted path) and times; the last line is the device summary.
 """
 import argparse
 import json
@@ -53,7 +66,11 @@ HR_SLICES = (LR_SLICES - 1) * DS + 1          # 175
 BENCH_CFG = dict(width=64, latent_width=16, depth=32, latent=128, colors=1,
                  use_batchnorm=True, use_sigmoid=True)
 KERNEL_SHAPES = ((HR_SLICES, HW, HW), (8, 256, 256), (5, 129, 97),
-                 (3, 64, 1500))            # + the phantom pair, (S, 220, 220)
+                 (3, 64, 1500),            # + the phantom pair, (S, 220, 220)
+                 # phase 7's find-best sweeps of the two 49-slice toy
+                 # volumes at 64²: one volume a launch (plain), then both
+                 # volumes' 67 padded output slices in one (batched)
+                 (8 * DS + 1, 64, 64), (2 * 67, 64, 64))
 KERNEL_ATOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
@@ -66,6 +83,10 @@ TRAIN_ARGS = dict(model="ae_combined", dataset="OASIS", **BENCH_CFG,
 TRAIN_PATCH, TRAIN_DS, TRAIN_LEARN_STEPS = 64, 4, 30
 SMALL_CFG = dict(width=32, latent_width=8, depth=4, latent=6, colors=1,
                  use_batchnorm=True, use_sigmoid=True)
+# phase 7: epochs of the quick-start train command; plain and batched
+# find-best sweeps agree within SWEEP_ATOL (tests/test_torch_port_cli.py)
+CLI_EPOCHS = 2
+SWEEP_ATOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -439,6 +460,207 @@ def check_train(dev, seed: int, hr: np.ndarray, serve_kw: dict, card: str,
     return out
 
 
+def _cli_train_argv(out: str, exper_id: str, cfg: dict, epochs: int,
+                    extra=()) -> list:
+    """train-brain argv: the MNIST3D quick start at ``cfg``'s widths."""
+    return ["-d", "MNIST3D", "--use_synthetic_data", "-m", "ae_combined",
+            "--image_mix_loss_func", "mse", "--epoch_threshold", "-1",
+            "-e", str(epochs), "-o", out, "-id", exper_id,
+            "--width", str(cfg["width"]),
+            "--latent_width", str(cfg["latent_width"]),
+            "--depth", str(cfg["depth"]), "--latent", str(cfg["latent"]),
+            *extra]
+
+
+def check_cli(seed: int, card: str) -> dict:
+    """Phase 7 (see the module docstring): the port's CLIs in-process on
+    the card, in a temp dir; returns the SSIM launches of the find-best
+    paths and the CLI timings."""
+    import tempfile
+
+    import torch
+
+    from superresolution_aniso_mri_tpu_torch.cli import entry
+    from superresolution_aniso_mri_tpu_torch.config import load_settings
+    from superresolution_aniso_mri_tpu_torch.infer import create_super_volumes
+    from superresolution_aniso_mri_tpu_torch.ops import cuda_kernels
+    from superresolution_aniso_mri_tpu_torch.train import get_trainer
+    from superresolution_aniso_mri_tpu_torch.utils import (read_image,
+                                                           write_image)
+
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. train: the quick start at the bench model's full width
+        t0 = time.time()
+        trainer = entry.train_brain(_cli_train_argv(
+            tmp, "mnist3d", BENCH_CFG, CLI_EPOCHS,
+            ("--downsample_steps", str(DS), "-b", "16")))
+        t_end = time.time()
+        exper = os.path.join(tmp, "mnist3d")
+        models = sorted(os.listdir(os.path.join(exper, "models")))
+        files = sorted(os.listdir(exper))
+        pngs = sorted(os.listdir(os.path.join(exper, "log_images")))
+        log(f"cli train: {files}, models/{models}, log_images/{pngs}")
+        if models != ["0.models", "1.models", "ae.models", "caisr.models",
+                      "last.models"] or not pngs or not {
+                "settings.yaml", "loss_iters.npz", "losses_train.npz",
+                "losses_test.npz"} <= set(files):
+            raise AssertionError("train-brain did not write the experiment "
+                                 "files")
+        written = {k: v for k, v in trainer.args.items()
+                   if not k.startswith("_")}
+        if load_settings(os.path.join(exper, "settings.yaml")) != written:
+            raise AssertionError("settings.yaml does not read back as the "
+                                 "Trainer's args")
+        # numbered checkpoints are written at the end of their epoch: the
+        # gap between them is one whole epoch (train, validation, image
+        # dump, volume preview, checkpoints)
+        ends = [os.stat(os.path.join(exper, "models", f"{e}.models"))
+                .st_mtime_ns / 1e9 for e in range(CLI_EPOCHS)]
+        out["train_s_per_epoch"] = ends[1] - ends[0]
+        out["train_first_epoch_s"] = ends[0] - t0
+        out["train_cli_s"] = t_end - t0
+        out["train_steps_per_epoch"] = trainer.iters // CLI_EPOCHS
+        loss = np.load(os.path.join(exper, "losses_train.npz"))["loss_ae"]
+        log(f"cli train: loss_ae by epoch {loss.tolist()}; "
+            f"{out['train_steps_per_epoch']} steps an epoch; s/epoch "
+            f"{out['train_s_per_epoch']:.3f} (first epoch, set-up included: "
+            f"{out['train_first_epoch_s']:.3f})")
+        if not np.isfinite(loss).all():
+            raise AssertionError("train-brain losses are not finite")
+
+        # 2. generate: the OASIS-shaped phantom's kept slices, 6 mm → 1 mm
+        inputs = os.path.join(tmp, "inputs")
+        os.makedirs(inputs)
+        kept = phantom(seed)[::DS]
+        in_path = os.path.join(inputs, "oasis0.nii.gz")
+        write_image(in_path, kept, spacing=(float(DS), 1.0, 1.0))
+        gen_out = os.path.join(tmp, "generated")
+        argv = ["--exper_dir", exper, "--model_nbr", "caisr",
+                "--num_interpolations", str(DS - 1), "--data_input_dir",
+                inputs, "--output_dir", gen_out]
+        entry.generate_hr_volumes(argv)                  # warm-up
+        t0 = time.perf_counter()
+        entry.generate_hr_volumes(argv)
+        out["generate_cli_s_per_volume"] = time.perf_counter() - t0
+        res_path = os.path.join(gen_out, f"oasis0_ni{DS - 1:02d}.nii.gz")
+        vol, spacing, affine = read_image(res_path)
+        check_volume(vol, "generate-hr-volumes")
+        if not (np.allclose(spacing, [1.0, 1.0, 1.0])
+                and np.allclose(affine[:3, 2], [0.0, 0.0, 1.0])):
+            raise AssertionError(f"generate-hr-volumes geometry: spacing "
+                                 f"{spacing}, affine z column "
+                                 f"{affine[:3, 2]}")
+        # the same three steps outside the CLI, on the same arrays
+        served = get_trainer(exper, "caisr")
+        t0 = time.perf_counter()
+        arr, _, _ = read_image(in_path)
+        out["generate_read_s"] = time.perf_counter() - t0
+        alphas = np.linspace(0, 1, DS + 1)[1:-1]
+        synth = dict(alpha_range=alphas, use_original=True,
+                     downsample_steps=None, generate_inbetween_slices=False)
+        create_super_volumes(served, [arr], **synth)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = create_super_volumes(served, [arr], **synth)[0]
+        out["generate_synthesis_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        write_image(os.path.join(tmp, "timed.nii.gz"), vol,
+                    spacing=spacing, affine=affine)
+        out["generate_write_s"] = time.perf_counter() - t0
+        same = float(np.abs(again["upsampled_image"] - vol).max())
+        log(f"cli generate: {os.path.basename(res_path)} {vol.shape}, "
+            f"z-spacing {spacing[0]}, {os.path.getsize(res_path)} bytes; "
+            f"synthesis outside the CLI differs by {same:.3e}")
+        if not same <= 1e-6:
+            raise AssertionError("generate-hr-volumes differs from the "
+                                 "synthesis it runs")
+
+        # 3. find best: every checkpoint scored, plain and batched
+        sweeps = {}
+        for name, extra in (("plain", []), ("batched", ["--batched"])):
+            cuda_kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = entry.find_best_model(["--exper_dir", exper,
+                                         "--use_synthetic_data",
+                                         "--downsample_steps", str(DS)]
+                                        + extra)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            out[f"find_best_{name}_launches"] = cuda_kernels.LAUNCHES[
+                "ssim_slice"]
+            out[f"find_best_{name}_s_per_checkpoint"] = dt / len(
+                res["epochs"])
+            sweeps[name] = res["history"]
+        log(f"cli find-best: SSIM launches plain "
+            f"{out['find_best_plain_launches']} (expected {2 * CLI_EPOCHS}), "
+            f"batched {out['find_best_batched_launches']} (expected "
+            f"{CLI_EPOCHS}); per-epoch SSIM plain {sweeps['plain']['ssim']}, "
+            f"batched {sweeps['batched']['ssim']}")
+        if (out["find_best_plain_launches"] != 2 * CLI_EPOCHS
+                or out["find_best_batched_launches"] != CLI_EPOCHS):
+            raise AssertionError("find-best-model did not score every "
+                                 "checkpoint through the SSIM kernel")
+        sweep_err = max(abs(a - b) for k in sweeps["plain"]
+                        for a, b in zip(sweeps["plain"][k],
+                                        sweeps["batched"][k])
+                        if np.isfinite(a) or np.isfinite(b))
+        log(f"cli find-best: plain vs batched max |diff| {sweep_err:.3e} "
+            f"(limit {SWEEP_ATOL})")
+        if not sweep_err <= SWEEP_ATOL:
+            raise AssertionError("plain and batched sweeps disagree")
+
+        # 4. serve: a watch dir of two volumes, drained once
+        watch = os.path.join(tmp, "watch")
+        os.makedirs(watch)
+        for i in (1, 2):
+            write_image(os.path.join(watch, f"oasis{i}.nii.gz"),
+                        phantom(seed + i)[::DS], spacing=(float(DS), 1.0, 1.0))
+        manifest = os.path.join(tmp, "manifest.jsonl")
+        n_served = entry.serve_hr_volumes([
+            "--exper_dir", exper, "--watch_dir", watch, "--output_dir",
+            os.path.join(tmp, "served"), "--once", "--latent_interp",
+            "lanczos3", "--num_interpolations", str(DS - 1),
+            "--manifest", manifest])
+        with open(manifest) as f:
+            lines = [json.loads(line) for line in f]
+        out["serve_cli_s_per_volume"] = [r["seconds"] for r in lines]
+        for r in lines:
+            check_volume(read_image(r["outputs"][0])[0], "serve-hr-volumes")
+        log(f"cli serve: {n_served} volumes, manifest {len(lines)} lines, "
+            f"s/volume {out['serve_cli_s_per_volume']}")
+        if n_served != 2 or len(lines) != 2:
+            raise AssertionError("serve-hr-volumes did not serve both "
+                                 "volumes")
+
+        # 5. card against CPU: a small experiment trained on the card
+        entry.train_brain(_cli_train_argv(
+            tmp, "small", SMALL_CFG, 1, ("--downsample_steps", "2",
+                                         "--limited_load", "-b", "8")))
+        crop_dir = os.path.join(tmp, "crop")
+        os.makedirs(crop_dir)
+        write_image(os.path.join(crop_dir, "crop.nii.gz"),
+                    kept[:, 60:124, 70:134].copy(),
+                    spacing=(float(DS), 1.0, 1.0))
+        vols = {}
+        for dev_name in ("cuda", "cpu"):
+            o = os.path.join(tmp, f"small_{dev_name}")
+            entry.generate_hr_volumes(
+                ["--exper_dir", os.path.join(tmp, "small"),
+                 "--num_interpolations", str(DS - 1), "--data_input_dir",
+                 crop_dir, "--output_dir", o],
+                device=dev_name)
+            vols[dev_name] = read_image(os.path.join(
+                o, f"crop_ni{DS - 1:02d}.nii.gz"))[0]
+        card_cpu = float(np.abs(vols["cuda"] - vols["cpu"]).max())
+        log(f"cli generate card vs CPU, {SMALL_CFG}: max_abs_diff "
+            f"{card_cpu:.3e} (limit 1e-4)")
+        if not card_cpu <= 1e-4:
+            raise AssertionError("card and CPU generate-hr-volumes differ")
+    log(f"cli timings [{card}]: " + json.dumps(out))
+    return out
+
+
 def _kernel_kind(name: str) -> str:
     """Bucket of a device event by its kernel name."""
     low = name.lower()
@@ -676,6 +898,9 @@ def main() -> int:
                           timings["serve_linear_s_per_volume"]
                           + timings["score_s_per_volume"], args.profile)
 
+    # ---- 7. experiment-directory CLIs --------------------------------
+    cli = check_cli(args.seed, card)
+
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)  # name and power limit, as nvidia-smi prints them
     print(json.dumps({"kernels": [{
@@ -683,6 +908,11 @@ def main() -> int:
         "source": "superresolution_aniso_mri_tpu_torch/csrc/ssim.cu",
         "replaces": "superresolution_aniso_mri_tpu/ops/pallas_kernels.py:43",
         "launches": launches["ssim_slice"],
+        "launches_by_path": {
+            "serve_score": launches["ssim_slice"],
+            "train_serve_score": train["launches"]["ssim_slice"],
+            "cli_find_best": cli["find_best_plain_launches"],
+            "cli_find_best_batched": cli["find_best_batched_launches"]},
         "max_abs_err": kcheck["max_abs_err"], "ok": True,
         "ms": kernel_ms, "ms_cold": kernel_cold_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,

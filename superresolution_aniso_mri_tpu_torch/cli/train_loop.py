@@ -1,0 +1,273 @@
+"""Shared training loop driven by the train commands.
+
+Port of ``superresolution_aniso_mri_tpu/cli/train_loop.py`` (reference:
+train_cardiac_aesr.py:153-204 / train_brain_aesr.py:137-192): the epoch
+loop over the host sampler's batches (``TripletSampler.epoch_batches``,
+uploaded and shaped by ``data.device_batch``), ``num_val_batches``
+validation batches, the per-epoch loss flush, image dumps and volume
+previews at their intervals, best aliases and checkpoints,
+``--model_filename`` / ``--auto_resume``, and KeyboardInterrupt →
+``last.models``.
+
+Not ported, and raising before anything is written: the random
+augmentations (every dataset but MNIST3D; ROADMAP item 6), MNISTRoto's
+on-the-fly sampler (item 15), ``--profile_dir`` (item 16), multi-host
+runs (item 11), and what ``Trainer`` refuses. The JAX package's device
+slice cache and prefetch thread are not ported either (item 6): each
+batch is uploaded when the step takes it.
+"""
+from __future__ import annotations
+
+import os
+import time
+from typing import Dict
+
+import numpy as np
+
+from ..config.net_config import NetworkConfig, merge_args_architecture
+from ..data import AugmentConfig, TripletSampler, device_batch
+from ..data.datasets import get_datasets
+from ..data.transforms import _random_ops
+from ..train import Trainer
+from ..utils.grids import generate_recon_grid, save_image_grid
+
+
+def build_augment_config(args: Dict) -> AugmentConfig:
+    """Per-dataset transform composition, as the JAX package composes it
+    (reference: train_cardiac_aesr.py:83-105 get_transforms,
+    datasets/common_brains.py:47-100 get_transforms_brain)."""
+    dataset = args["dataset"]
+    width = int(args["width"])
+    aug_patch = args.get("aug_patch_size")
+    if dataset in ("MNIST3D", "MNISTRoto"):
+        return AugmentConfig(patch_size=width, aug_patch_size=aug_patch,
+                             random_crop=False, rot90=False, intensity=False)
+    # label channels (ACDCLBL) and loss-mask channels must stay exact
+    exact_channels = dataset == "ACDCLBL" or bool(args.get("get_masks"))
+    return AugmentConfig(
+        patch_size=width,
+        aug_patch_size=int(aug_patch) if aug_patch else None,
+        random_crop=True, rot90=True, intensity=not exact_channels,
+        rotate_any=bool(args.get("rotate_any")) and not exact_channels,
+        max_degree=359,
+        crop_next_to_center=dataset in ("dHCP", "ADNI", "brainMASI"),
+        max_translation=35,
+        noise=bool(args.get("aug_noise")) and not exact_channels,
+        blur=bool(args.get("aug_blur")) and not exact_channels,
+    )
+
+
+def rehydrate_resume_loss_config(args_dict: Dict) -> list:
+    """--auto_resume continuation: loss-defining keys the CLI left unset
+    come from the experiment's recorded settings.yaml, not from ambient
+    defaults (the combined families' default mix loss depends on
+    SR_MIX_LOSS_DEFAULT, config/net_config.py). Returns the list of
+    rehydrated keys."""
+    if not args_dict.get("auto_resume"):
+        return []
+    out = args_dict.get("output_dir")
+    spath = os.path.join(out, "settings.yaml") if out else None
+    if not spath or not os.path.isfile(spath):
+        return []
+    from ..config.settings import load_settings
+
+    kept = load_settings(spath) or {}
+    took = []
+    for key in ("image_mix_loss_func", "alpha_loss_func"):
+        if args_dict.get(key) is None and kept.get(key) is not None:
+            args_dict[key] = kept[key]
+            took.append(key)
+    return took
+
+
+def _refuse_unported(merged: Dict) -> None:
+    """Raise for the options of the JAX loop the port does not run."""
+    if merged.get("profile_dir"):
+        raise NotImplementedError(
+            "--profile_dir: the profiler trace of the training loop is not "
+            "ported yet (ROADMAP item 16)")
+    if merged["dataset"] == "MNISTRoto":
+        raise NotImplementedError(
+            "MNISTRoto: the on-the-fly rotation-triplet sampler is not "
+            "ported yet (ROADMAP item 15)")
+    if int(merged.get("num_processes") or 1) > 1 \
+            or merged.get("coordinator_address"):
+        raise NotImplementedError(
+            "multi-host training is not ported yet (ROADMAP item 11)")
+    ops = _random_ops(build_augment_config(merged), need_crop=True)
+    if ops:
+        raise NotImplementedError(
+            f"dataset {merged['dataset']!r} trains with the random "
+            f"augmentations {ops}, which are not ported yet (ROADMAP item "
+            f"6); the port trains MNIST3D (deterministic recipe)")
+
+
+def _generate_volume_previews(trainer, val_vols, merged: Dict,
+                              epoch: int) -> None:
+    """Synthesize the first validation volume (ds=2) and save its
+    original-vs-synth compare grid (reference: base_trainer.py:149-162,
+    evaluate/evaluate_image.py:36-107)."""
+    interval = int(merged.get("volume_preview_interval", 1) or 0)
+    if not val_vols or interval <= 0 or epoch % interval != 0:
+        return
+    from ..evaluate import generate_val_volume_grids
+
+    vol = val_vols[0]
+    image_dicts = {getattr(vol, "patient_id", "val0") or "val0":
+                   {"image": np.asarray(vol.image, np.float32)}}
+    try:
+        res = generate_val_volume_grids(
+            trainer, image_dicts, eval_patch_size=int(merged["width"]))
+    except Exception as exc:  # a preview must never kill training
+        print(f"volume preview skipped: {exc}")
+        return
+    for pid, grid in res["grids"].items():
+        save_image_grid(grid, os.path.join(
+            trainer.dir_images, f"synth_vol_{pid}_e{epoch:03d}.png"))
+
+
+def run_training(args_dict: Dict, verbose: bool = True) -> Trainer:
+    """Train the experiment that ``args_dict`` (``parse_args``' dict)
+    describes on its ``device`` (``cuda`` unless it says ``cpu``), into
+    its ``output_dir``. Returns the Trainer."""
+    rehydrate_resume_loss_config(args_dict)
+    net_cfg = NetworkConfig(args_dict["model"], args_dict["dataset"],
+                            args_dict.get("ae_class", "VanillaACAI"))
+    merged = merge_args_architecture(args_dict, net_cfg.architecture)
+    _refuse_unported(merged)
+
+    trainer = Trainer(merged, device=merged.get("device"))
+    trainer.prepare_run()
+    merged = trainer.args
+    dev = trainer.device
+
+    train_vols, val_vols = get_datasets(merged)
+    ds = int(merged.get("downsample_steps") or 2)
+    pad = int(merged.get("aug_patch_size") or merged["width"])
+    use_masks = bool(merged.get("get_masks"))
+    tli = str(merged.get("train_latent_interp") or "linear")
+    latent_taps = {"cubic": 4, "lanczos3": 6}.get(tli, 2)
+    sampler = TripletSampler(
+        train_vols, ds, merged.get("slice_selection", "adjacent_plus"),
+        pad_size=pad, seed=int(merged.get("seed", 0)),
+        use_masks=use_masks, latent_taps=latent_taps)
+    val_sampler = TripletSampler(val_vols, ds, "adjacent_plus",
+                                 pad_size=pad,
+                                 seed=int(merged.get("seed", 0)) + 1,
+                                 use_masks=use_masks,
+                                 latent_taps=latent_taps)
+    aug_cfg = build_augment_config(merged)
+    val_cfg = AugmentConfig(patch_size=int(merged["width"]),
+                            aug_patch_size=aug_cfg.aug_patch_size,
+                            random_crop=False, rot90=False, intensity=False)
+
+    batch_size = int(merged["batch_size"])
+    test_batch_size = int(merged.get("test_batch_size", batch_size))
+    epochs = int(merged["epochs"])
+
+    if merged.get("model_filename"):
+        trainer.load(merged["model_filename"])
+        if verbose:
+            print(f"resumed from {merged['model_filename']} "
+                  f"(epoch {trainer.epoch})")
+    elif merged.get("auto_resume"):
+        # elastic restart: prefer the rolling last.models (written every
+        # epoch), else the newest numbered checkpoint
+        from ..evaluate.find_best_model import list_epoch_checkpoints
+
+        last = os.path.join(trainer.dir_models, "last.models")
+        ckpt = None
+        if os.path.isfile(last):
+            ckpt = last
+        else:
+            epochs_saved = list_epoch_checkpoints(merged["output_dir"])
+            if epochs_saved:
+                ckpt = os.path.join(trainer.dir_models,
+                                    f"{epochs_saved[-1]}.models")
+        if ckpt:
+            trainer.load(ckpt)
+            if verbose:
+                print(f"auto-resumed from {ckpt} (epoch {trainer.epoch})")
+
+    # stall watchdog (--step_timeout_s): a hung device blocks instead of
+    # raising — beat after every completed step and exit 75 on silence
+    # so a supervisor can restart with --auto_resume
+    watchdog = None
+    timeout_s = float(merged.get("step_timeout_s") or 0)
+    if timeout_s > 0:
+        from ..utils.watchdog import StepWatchdog
+
+        first_s = max(timeout_s,
+                      float(merged.get("first_step_timeout_s") or 600.0))
+        watchdog = StepWatchdog(timeout_s, label=str(
+            merged.get("exper_id") or "train"),
+            first_timeout_s=first_s).start()
+
+    def _beat():
+        if watchdog is not None:
+            watchdog.beat()
+
+    def to_device(raw, cfg):
+        return device_batch(raw, cfg, dev, latent_taps=latent_taps)
+
+    try:
+        for epoch in range(trainer.epoch, epochs):
+            t0 = time.time()
+            last_batch = None
+            for raw in sampler.epoch_batches(batch_size):
+                last_batch = to_device(raw, aug_cfg)
+                trainer.train(last_batch)
+                _beat()
+            # end-of-epoch validation over several batches, so best-model
+            # selection averages a real estimate
+            n_val = int(merged.get("num_val_batches", 4) or 4)
+            val_batch = None
+            for _ in range(n_val):
+                val_batch = to_device(
+                    val_sampler.sample_batch(test_batch_size), val_cfg)
+                trainer.validate(val_batch)
+                _beat()
+            trainer.show_loss_on_tensorboard("train")
+            trainer.show_loss_on_tensorboard("test")
+
+            if last_batch is None:
+                raise ValueError(
+                    f"epoch {epoch} produced 0 training batches — the "
+                    f"dataset has fewer slices ({len(sampler)}) than "
+                    f"batch_size ({batch_size})")
+            if verbose:
+                tr = trainer.mean_losses["loss_ae"][-1]
+                te = trainer.mean_losses_test["loss_ae"][-1]
+                print(f"epoch {epoch:4d}  loss_ae={tr:.5f} "
+                      f"val={te:.5f}  ({time.time() - t0:.1f}s)")
+
+            # image dumps (reference: base_trainer.py:395-420)
+            dump_every = int(merged.get("image_dump_interval", 1) or 0)
+            if trainer.test_predictions and dump_every > 0 \
+                    and epoch % dump_every == 0:
+                grid = generate_recon_grid(
+                    val_batch["image"][:, 0].cpu().numpy(),
+                    trainer.test_predictions["reconstruction"][:, 0]
+                    .cpu().numpy())
+                save_image_grid(grid, os.path.join(
+                    trainer.dir_images, f"val_recons_e{epoch:03d}.png"))
+                _beat()
+
+            _generate_volume_previews(trainer, val_vols, merged, epoch)
+            _beat()
+            trainer.reset_losses()
+            trainer.end_epoch_processing()
+            _beat()
+    except KeyboardInterrupt:
+        if watchdog is not None:
+            watchdog.stop()
+        # the rolling checkpoint, not a numbered file: a numbered name
+        # means "epoch N completed" to the find-best sweep. Stored epoch
+        # = trainer.epoch, so --auto_resume reruns the interrupted epoch
+        fname = os.path.join(trainer.dir_models, "last.models")
+        trainer.save_models(fname, trainer.epoch)
+        print(f"interrupted — saved {fname} (epoch {trainer.epoch})")
+    finally:
+        if watchdog is not None:
+            watchdog.stop()
+    return trainer

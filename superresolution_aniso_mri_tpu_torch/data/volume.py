@@ -1,10 +1,10 @@
-"""Host-side volume container and the slice-pairing helpers of the
-triplet sampler.
+"""Host-side volume container, intensity and in-plane resampling
+helpers, and the slice-pairing helpers of the triplet sampler.
 
-A numpy copy of ``superresolution_aniso_mri_tpu/data/volume.py``
-(``Volume``, ``get_random_adjacent_slice``,
-``determine_interpol_coefficients``), so the port imports nothing of
-the JAX package.
+A numpy/scipy copy of ``superresolution_aniso_mri_tpu/data/volume.py``
+(``Volume``, ``rescale_intensities``, ``apply_2d_zoom_3d/_4d``,
+``get_random_adjacent_slice``, ``determine_interpol_coefficients``), so
+the port imports nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import scipy.ndimage
 
 
 @dataclasses.dataclass
@@ -44,6 +45,66 @@ class Volume:
     @property
     def num_slices(self) -> int:
         return int(self.image.shape[0])
+
+
+def rescale_intensities(im: np.ndarray, percs=(0, 100),
+                        dtype=np.float32) -> np.ndarray:
+    """Percentile intensity rescale to [0,1]
+    (reference: datasets/common.py:408-416).
+
+    NaN voxels (registration/resampling fill) are treated as background:
+    percentiles ignore them and they map to 0 — fixing only the
+    percentile SCALARS would still let NaN voxels flow into training
+    batches and NaN the run."""
+    if np.isnan(im).any():
+        min_val, max_val = np.nanpercentile(im, percs)
+        im = np.nan_to_num(im, nan=float(min_val)
+                           if np.isfinite(min_val) else 0.0)
+    else:
+        min_val, max_val = np.percentile(im, percs)
+    if np.isnan(min_val):
+        min_val = 0.0
+    if np.isnan(max_val):
+        max_val = 1.0
+    if max_val - min_val == 0:
+        # constant input (blank/padded frame): dividing by 0 would fill
+        # the training batch with NaNs
+        return np.zeros_like(im, dtype=dtype)
+    return ((im.astype(dtype) - min_val) / (max_val - min_val)).clip(0, 1)
+
+
+def apply_2d_zoom_3d(arr3d: np.ndarray, spacing, new_spacing,
+                     order: int = 1, do_blur: bool = True,
+                     as_type=np.float32) -> np.ndarray:
+    """In-plane resample of a [S, H, W] stack to ``new_spacing`` (y, x)
+    with an anti-alias gaussian pre-blur of sigma = 0.25/zoom
+    (reference: datasets/common.py:178-206)."""
+    spacing = np.asarray(spacing, np.float64)[-2:]
+    new_spacing = np.asarray(new_spacing, np.float64)[-2:]
+    zoom = spacing / new_spacing
+    arr3d = arr3d.astype(np.float32).copy()
+    if do_blur:
+        sigma = 0.25 / zoom
+        # vectorised: blur y/x only (sigma_z = 0)
+        arr3d = scipy.ndimage.gaussian_filter(arr3d, (0.0, sigma[0], sigma[1]))
+    resized = scipy.ndimage.zoom(arr3d, (1.0,) + tuple(zoom), order=order)
+    if np.issubdtype(np.dtype(as_type), np.integer):
+        resized = np.round(resized).astype(as_type)
+    else:
+        resized = resized.astype(as_type)
+    return resized
+
+
+def apply_2d_zoom_4d(arr4d: np.ndarray, spacing, new_spacing,
+                     order: int = 1, do_blur: bool = True,
+                     as_type=np.float32) -> np.ndarray:
+    """Per-frame variant of apply_2d_zoom_3d
+    (reference: datasets/common.py:157-175)."""
+    return np.stack([
+        apply_2d_zoom_3d(arr4d[t], spacing, new_spacing, order=order,
+                         do_blur=do_blur, as_type=as_type)
+        for t in range(arr4d.shape[0])
+    ], axis=0)
 
 
 def get_random_adjacent_slice(slice_id: int, num_slices: int, rs, step: int = 1) -> int:

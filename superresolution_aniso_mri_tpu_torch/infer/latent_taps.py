@@ -1,15 +1,16 @@
 """Fitted per-alpha latent tap weights: serving side.
 
 Port of ``superresolution_aniso_mri_tpu/infer/latent_taps.py:32-162``
-(everything but the fitting). A table ``{'offsets', 'alphas',
-'weights'}`` written by the reference's ``save_latent_taps`` serves
-through ``latent_interp="fitted:<path>"``; rows are interpolated
-linearly in alpha.
+(everything but the fitting, ROADMAP item 14). A table ``{'offsets',
+'alphas', 'weights'}`` written by the reference's ``save_latent_taps``
+serves through ``latent_interp="fitted:<path>"``; rows are interpolated
+linearly in alpha. The CLIs expand a bare ``fitted`` to the
+experiment's ``models/latent_taps.npz`` (``resolve_latent_interp``).
 """
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -29,6 +30,22 @@ def fitted_table_path(mode: str) -> str:
             "'fitted:<path to latent_taps.npz>' (fit one with the JAX "
             "package's fit_latent_taps.py)")
     return mode.split(":", 1)[1]
+
+
+def resolve_latent_interp(mode: str, exper_dir: Optional[str] = None) -> str:
+    """Expand bare 'fitted' to 'fitted:<exper>/models/latent_taps.npz';
+    other modes pass through untouched."""
+    if mode != FITTED_PREFIX:
+        return mode
+    if not exper_dir:
+        fitted_table_path(mode)  # raises with the how-to message
+    path = os.path.join(exper_dir, "models", "latent_taps.npz")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(
+            f"latent_interp='fitted' but no weight table at {path} — fit "
+            f"one with the JAX package's fit_latent_taps.py first (the "
+            f"port's fit-latent-taps is ROADMAP item 14)")
+    return f"{FITTED_PREFIX}:{path}"
 
 
 def load_latent_taps(path: str) -> Dict[str, np.ndarray]:

@@ -1,19 +1,24 @@
 """Trainer: experiment directory, epoch bookkeeping, validation,
-checkpoints and best-model aliases.
+checkpoints and best-model aliases; ``get_trainer`` rebuilds one from an
+experiment directory.
 
 Port of the ``ae`` / ``ae_combined`` + ``VanillaACAI`` part of
-``superresolution_aniso_mri_tpu/train/trainer.py::Trainer``. It writes
-the JAX package's experiment files under ``output_dir``:
+``superresolution_aniso_mri_tpu/train/trainer.py``. It writes the JAX
+package's experiment files under ``output_dir``:
 
+  settings.yaml                (``config/settings.py``)
   models/<epoch>.models (after ``epoch_threshold``), ae.models,
   caisr.models, last.models    (``train/checkpoint.py`` layout)
   loss_iters.npz, losses_train.npz, losses_test.npz
+  log_images/                  (``cli/train_loop.py`` writes the PNGs)
 
-``settings.yaml`` is not written yet (ROADMAP S2). Not ported, and
-raising: other families and models (item 9), perceptual and SSIM losses
-(item 8), EMA weights, ``steps_per_dispatch`` (``train_many``) and
-TensorBoard logging (item 7), ``num_devices > 1`` (item 11). Volume
-previews and image dumps are absent (item 7).
+Not ported, and raising when training: other families and models (item
+9), perceptual and SSIM losses (item 8), EMA weights,
+``steps_per_dispatch`` (``train_many``) and TensorBoard logging (item
+7), ``num_devices > 1`` (item 11). An ``eval_mode`` trainer (serving,
+scoring) takes any experiment of a VanillaACAI model: it builds no
+train or eval step, so the training-only options and losses of the
+experiment do not matter.
 """
 from __future__ import annotations
 
@@ -24,43 +29,14 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ..config.settings import (apply_setting_defaults, load_settings,
+                               save_experiment_settings)
 from ..device import resolve_device
 from ..models import AEConfig, VanillaACAI
 from .checkpoint import load_checkpoint, save_checkpoint
 from .state import create_train_state
 from .steps import (FAMILY_OF_MODEL, LossConfig, make_eval_step,
                     make_train_step)
-
-# the JAX package's rehydration defaults (config/settings.py) of the keys
-# the port reads
-SETTING_DEFAULTS = {
-    "use_sigmoid": False,
-    "use_batchnorm": False,
-    "n_res_block": None,
-    "colors": 1,
-    "use_laploss": False,
-    "use_percept_loss": False,
-    "image_mix_loss_func": None,
-    "use_extra_latent_loss": False,
-    "use_loss_annealing": False,
-    "get_masks": False,
-    "ex_loss_weight1": 0.001,
-    "ae_class": "VanillaACAI",
-    "momentum": 0.9,
-    "weight_decay": 0.0,
-    "epoch_threshold": 100,
-    "lr_warmup_steps": 0,
-    "compute_dtype": "float32",
-    "nclasses": 4,
-    "ema_decay": 0.0,
-    "stem_pad_parity": False,
-}
-
-
-def apply_setting_defaults(args: Dict[str, Any]) -> Dict[str, Any]:
-    for k, v in SETTING_DEFAULTS.items():
-        args.setdefault(k, v)
-    return args
 
 
 def loss_config_from_args(args: Dict[str, Any]) -> LossConfig:
@@ -100,9 +76,11 @@ def weight_annealing_schedule(epochs: int, weight: float) -> np.ndarray:
     return y[::-1].copy()
 
 
-def _unsupported(args: Dict[str, Any]) -> Optional[str]:
+def _unsupported(args: Dict[str, Any], eval_mode: bool) -> Optional[str]:
     if args.get("ae_class", "VanillaACAI") != "VanillaACAI":
         return f"ae_class {args['ae_class']!r} (ROADMAP item 9)"
+    if eval_mode:
+        return None
     if float(args.get("ema_decay") or 0.0) > 0:
         return "ema_decay > 0 (EMA weights, ROADMAP item 7)"
     if int(args.get("steps_per_dispatch", 1) or 1) > 1:
@@ -119,12 +97,19 @@ class Trainer:
 
     ``device=None`` means the CUDA device (raises without one);
     ``seed`` (default ``args["seed"]``, else 0) seeds the weights through
-    ``VanillaACAI.reset_parameters`` on a CPU ``torch.Generator``."""
+    ``VanillaACAI.reset_parameters`` on a CPU ``torch.Generator``.
+    ``eval_mode=True`` (serving and scoring) builds no train or eval
+    step. The serving surface of ``infer.create_super_volume(s)``
+    (``model_config``, ``device``, ``_ae_model()``, ``_ae_params()``,
+    ``params_sr``, ``synth_cache``) is the one of ``ServingModel``."""
 
-    def __init__(self, args: Dict[str, Any], device=None,
-                 seed: Optional[int] = None):
+    params_sr = None
+
+    def __init__(self, args: Dict[str, Any], eval_mode: bool = False,
+                 device=None, seed: Optional[int] = None):
         self.args = apply_setting_defaults(dict(args))
-        why = _unsupported(self.args)
+        self.eval_mode = eval_mode
+        why = _unsupported(self.args, eval_mode)
         if why:
             raise NotImplementedError(f"not ported yet: {why}")
         self.device = resolve_device(device)
@@ -148,8 +133,12 @@ class Trainer:
             float(self.args.get("momentum", 0.9)), cosine_steps,
             float(self.args.get("max_grad_norm", 0) or 0),
             int(self.args.get("lr_warmup_steps", 0) or 0))
-        self.train_step = make_train_step(self.loss_config)
-        self.eval_step = make_eval_step(self.loss_config)
+        if not eval_mode:
+            self.train_step = make_train_step(self.loss_config)
+            self.eval_step = make_eval_step(self.loss_config)
+        # synthesis cores and sweep evaluators built for this model
+        self.synth_cache: dict = {}
+        self.test_predictions = None
         self._best_val: Dict[str, float] = {}
         self.losses = defaultdict(list)
         self.losses_test = defaultdict(list)
@@ -163,7 +152,10 @@ class Trainer:
             float(self.args.get("ex_loss_weight1", 0.001)))
         if self.args.get("output_dir"):
             self.dir_models = os.path.join(self.args["output_dir"], "models")
+            self.dir_images = os.path.join(self.args["output_dir"],
+                                           "log_images")
             self.args.setdefault("dir_models", self.dir_models)
+            self.args.setdefault("dir_images", self.dir_images)
 
     @property
     def model(self) -> VanillaACAI:
@@ -174,8 +166,15 @@ class Trainer:
         return self._iters
 
     def prepare_run(self) -> None:
-        """Create ``output_dir/models`` (``settings.yaml``: ROADMAP S2)."""
+        """Create the experiment tree (``models/``, ``log_images/``) and
+        write ``settings.yaml``: the trainer's args without the keys that
+        start with ``_``."""
+        out = self.args["output_dir"]
         os.makedirs(self.dir_models, exist_ok=True)
+        os.makedirs(self.dir_images, exist_ok=True)
+        save_experiment_settings(
+            {k: v for k, v in self.args.items() if not k.startswith("_")},
+            os.path.join(out, "settings.yaml"))
 
     def _mix_weight(self) -> float:
         if self.args.get("use_loss_annealing"):
@@ -194,21 +193,21 @@ class Trainer:
         return metrics
 
     def validate(self, batch: Dict[str, torch.Tensor]):
-        """Record one validation batch's losses (device tensors)."""
-        metrics, _ = self.eval_step(self.model, batch, self._mix_weight())
+        """Record one validation batch's losses (device tensors); its
+        predictions stay in ``test_predictions`` for the image dumps."""
+        metrics, aux = self.eval_step(self.model, batch, self._mix_weight())
         for k, v in metrics.items():
             self.losses_test[k].append(v)
+        self.test_predictions = aux
         return metrics
 
-    def serving_model(self, device=None):
-        """An ``infer.ServingModel`` with a copy of the current weights
-        (on the trainer's device unless ``device`` is given)."""
-        from ..infer import ServingModel
+    def _ae_model(self) -> VanillaACAI:
+        return self.model
 
-        sd = {k: v.detach().clone() for k, v in
-              self.model.state_dict().items()}
-        return ServingModel(self.model_config, sd,
-                            device=self.device if device is None else device)
+    def _ae_params(self):
+        """(parameters, buffers) of the model, as ``ServingModel``'s."""
+        return (dict(self.model.named_parameters()),
+                dict(self.model.named_buffers()))
 
     # ------------------------------------------------------------------
     # checkpoints and loss archives
@@ -317,3 +316,21 @@ class Trainer:
         self.save_models(os.path.join(self.dir_models, "last.models"),
                          self.epoch + 1)
         self.epoch += 1
+
+
+def get_trainer(src_path: str, model_nbr=None, eval_mode: bool = True,
+                device=None) -> Trainer:
+    """A Trainer rebuilt from an experiment directory's settings.yaml,
+    with ``models/<model_nbr>.models`` loaded when ``model_nbr`` is not
+    None (an epoch number, 'ae', 'caisr', 'last' or 'ema'). The device is
+    ``device`` (None: the CUDA device): a ``device`` key in the settings
+    (the JAX package writes ``tpu``) is ignored."""
+    settings = load_settings(os.path.join(src_path, "settings.yaml"))
+    settings["output_dir"] = src_path
+    trainer = Trainer(settings, eval_mode=eval_mode, device=device)
+    if model_nbr is not None:
+        name = str(model_nbr)
+        if not name.endswith(".models"):
+            name += ".models"
+        trainer.load(os.path.join(src_path, "models", name))
+    return trainer

@@ -1,6 +1,6 @@
 """PyTorch port on the card: the CUDA SSIM kernel against its plain
-version, and the serving and scoring entry points on CUDA against the
-same calls on the CPU. Every test here needs an NVIDIA GPU and skips
+version, the serving, scoring and training entry points on CUDA against
+the same calls on the CPU, and the experiment-directory commands. Every test here needs an NVIDIA GPU and skips
 without one.
 
 This file imports neither JAX nor the JAX package, so it runs where
@@ -8,6 +8,8 @@ only the port's dependencies are installed:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_port_cuda.py
 """
+import os
+
 import numpy as np
 import pytest
 import scipy.ndimage
@@ -218,3 +220,50 @@ def test_train_steps_on_card_match_cpu(cuda):
         limit = 1e-4 * max(1.0, float(v.abs().max())) if "running" in k \
             else 2 * lr * steps
         assert diff <= limit, (k, diff)
+
+
+def test_cli_train_generate_find_best_on_card(cuda, tmp_path):
+    """The quick-start commands on the card at a tiny size: train-brain
+    (MNIST3D, 2 epochs) writes the experiment files; generate-hr-volumes
+    on the card matches the same command on the CPU within 1e-4;
+    find-best-model scores every checkpoint through the kernel, one
+    launch a volume (plain) and one a chunk (--batched), and the two
+    sweeps agree within 1e-4."""
+    from superresolution_aniso_mri_tpu_torch.cli import entry
+    from superresolution_aniso_mri_tpu_torch.utils import (read_image,
+                                                           write_image)
+
+    entry.train_brain([
+        "-d", "MNIST3D", "--use_synthetic_data", "-m", "ae_combined",
+        "--image_mix_loss_func", "mse", "--downsample_steps", "2",
+        "--epoch_threshold", "-1", "--width", "32", "--latent_width", "16",
+        "--depth", "8", "--latent", "8", "--limited_load", "-b", "8",
+        "-e", "2", "-o", str(tmp_path), "-id", "x"])
+    exper = str(tmp_path / "x")
+    assert sorted(os.listdir(tmp_path / "x" / "models")) == [
+        "0.models", "1.models", "ae.models", "caisr.models", "last.models"]
+    inputs = tmp_path / "in"
+    inputs.mkdir()
+    write_image(str(inputs / "v.nii.gz"), _pair((6, 40, 44), seed=2)[0],
+                spacing=(3.0, 1.0, 1.0))
+    vols = {}
+    for dev in (None, "cpu"):
+        out = tmp_path / f"out_{dev}"
+        entry.generate_hr_volumes(
+            ["--exper_dir", exper, "--data_input_dir", str(inputs),
+             "--output_dir", str(out), "--num_interpolations", "2"],
+            device=dev)
+        vols[dev] = read_image(str(out / "v_ni02.nii.gz"))[0]
+    assert vols[None].shape == (16, 40, 44)
+    np.testing.assert_allclose(vols[None], vols["cpu"], atol=1e-4)
+    history = {}
+    for batched, launches in ((False, 4), (True, 2)):
+        cuda_kernels.reset_launch_counts()
+        res = entry.find_best_model(
+            ["--exper_dir", exper, "--use_synthetic_data"]
+            + (["--batched"] if batched else []))
+        assert cuda_kernels.LAUNCHES["ssim_slice"] == launches
+        history[batched] = res["history"]
+    for k, v in history[False].items():
+        np.testing.assert_allclose(history[True][k], v, atol=1e-4,
+                                   err_msg=k)

@@ -228,9 +228,22 @@ def test_trainer_writes_the_jax_experiment_files(tmp_path, monkeypatch):
     for k, v in pt.state.opt_state.mu.items():
         assert torch.equal(again.state.opt_state.mu[k], v), k
     assert again.mean_losses == pt.mean_losses
-    serving = pt.serving_model(device="cpu")
-    for k, v in pt.model.state_dict().items():
-        assert torch.equal(serving._ae_model().state_dict()[k], v), k
+    # the trainer itself is create_super_volume's serving surface
+    from superresolution_aniso_mri_tpu_torch.infer import (
+        ServingModel, create_super_volume)
+
+    params, buffers = pt._ae_params()
+    assert {**params, **buffers}.keys() == pt.model.state_dict().keys()
+    vol = np.random.RandomState(4).rand(7, 32, 32).astype(np.float32)
+    served = ServingModel(pt.model_config, pt.model.state_dict(),
+                          device="cpu")
+    np.testing.assert_array_equal(
+        create_super_volume(pt, vol, downsample_steps=3,
+                            alpha_range=[1 / 3, 2 / 3],
+                            generate_inbetween_slices=True)["upsampled_image"],
+        create_super_volume(served, vol, downsample_steps=3,
+                            alpha_range=[1 / 3, 2 / 3],
+                            generate_inbetween_slices=True)["upsampled_image"])
 
 
 @pytest.mark.parametrize("extra, item", [

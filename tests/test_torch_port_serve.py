@@ -327,13 +327,21 @@ def test_entry_points_default_to_cuda(monkeypatch):
 def test_port_imports_without_jax():
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
-            "for name in ('flax', 'optax', 'msgpack', 'yaml'):\n"
+            "for name in ('flax', 'optax', 'msgpack', 'yaml', 'PIL'):\n"
             "    sys.modules[name] = None\n"
             "import superresolution_aniso_mri_tpu_torch.evaluate\n"
             "import superresolution_aniso_mri_tpu_torch.infer\n"
             "import superresolution_aniso_mri_tpu_torch.ops.cuda_kernels\n"
             "import superresolution_aniso_mri_tpu_torch.train\n"
             "import superresolution_aniso_mri_tpu_torch.data\n"
+            "import superresolution_aniso_mri_tpu_torch.data.datasets\n"
+            "import superresolution_aniso_mri_tpu_torch.config\n"
+            "import superresolution_aniso_mri_tpu_torch.config.arguments\n"
+            "import superresolution_aniso_mri_tpu_torch.utils.grids\n"
+            "import superresolution_aniso_mri_tpu_torch.utils.watchdog\n"
+            "import superresolution_aniso_mri_tpu_torch.cli.entry\n"
+            "import superresolution_aniso_mri_tpu_torch.cli.train_loop\n"
+            "import superresolution_aniso_mri_tpu_torch.cli.__main__\n"
             "bad = [m for m in sys.modules if m == "
             "'superresolution_aniso_mri_tpu' or m.startswith("
             "'superresolution_aniso_mri_tpu.')]\n"
@@ -346,7 +354,7 @@ def test_port_imports_without_jax():
 def test_port_sources_import_nothing_of_the_jax_package():
     pattern = re.compile(
         r"^\s*(from|import)\s+(superresolution_aniso_mri_tpu(\.|\s|$)|jax\b"
-        r"|flax\b|optax\b|msgpack\b|yaml\b)", re.M)
+        r"|flax\b|optax\b|msgpack\b|yaml\b|PIL\b)", re.M)
     scanned = []
     for root, _dirs, files in os.walk(PORT_PKG):
         for name in files:
@@ -360,4 +368,9 @@ def test_port_sources_import_nothing_of_the_jax_package():
     with open(os.path.join(REPO, "chip_smoke.py")) as f:
         assert not pattern.search(f.read())
     assert {"super_volume.py", "metrics.py", "trainer.py", "steps.py",
-            "checkpoint.py", "msgpack.py", "pairs.py"} <= set(scanned)
+            "checkpoint.py", "msgpack.py", "pairs.py", "settings.py",
+            "arguments.py", "net_config.py", "nifti.py", "grids.py",
+            "watchdog.py", "datasets.py", "synthetic.py", "entry.py",
+            "train_loop.py", "__main__.py", "create_hr_images.py",
+            "find_best_model.py", "sweep.py",
+            "evaluate_image.py"} <= set(scanned)
