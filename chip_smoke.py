@@ -5,8 +5,9 @@ directory commands of the README quick start, and hold every
 hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py                        # one card, no arguments
-    python3 chip_smoke.py --profile out/prof.txt # + trace one serve+score
-                                                 # and one train step
+    python3 chip_smoke.py --profile out/prof.txt # + trace one serve+score,
+                                                 # one train step and 10
+                                                 # steps of phase 8's OASIS
 
 Phases (any failure ends the run with a non-zero exit):
   1. device: the card's name and power limit (nvidia-smi);
@@ -44,15 +45,31 @@ Phases (any failure ends the run with a non-zero exit):
      SSIM launches counted (4 and 2) and their scores held together;
      serve-hr-volumes ``--once`` over two volumes with a manifest; and a
      small experiment trained on the card, densified on the card and on
-     the CPU.
+     the CPU;
+  8. production recipes from disk (``$SR_DATA_ROOT`` in a temp dir, trees
+     written with the port's NIfTI writer): train-brain -d OASIS
+     (train_brain_aesr.py:8-10 with the MSE mix loss, ``--epoch_threshold
+     -1``, 2 epochs; 5 patients of [176, 208, 176] at 1 mm, 3 train / 1
+     validation / 1 test) with the random crop, rot90 and intensity
+     drawn, with the device slice cache and without it (s/epoch, ms/step
+     from CUDA events), and the cache's ``auto`` budget on the card
+     against the recipe's 200 training patients;
+     find-best-model over its 2 checkpoints on the validation patient,
+     SSIM launches counted and the kernel held against the plain version
+     on the pairs it scored; train-cardiac -d ACDC
+     with ``--train_latent_interp lanczos3`` (3 cines of [12, 10, 216,
+     256] at 10 x 1.5625 x 1.5625 mm, 1 epoch); ``augment_batch`` ms per
+     batch for the OASIS, dHCP-noise, ACDC-lanczos3 and every-op recipes;
+     ``apply_augment`` on the card against the CPU (every op but noise).
 The main path (serve linear → score) runs with every kernel launch count
 set to 0 just before it and read just after; so do the train phase's
-path (serve the trained checkpoint → score) and each find-best sweep of
-phase 7. The line before the last lists every kernel with its check,
+path (serve the trained checkpoint → score), each find-best sweep of
+phase 7 and phase 8's find-best. The line before the last lists every kernel with its check,
 launches (``launches``: the main path; ``launches_by_path``: every
 counted path) and times; the last line is the device summary.
 """
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -70,7 +87,10 @@ KERNEL_SHAPES = ((HR_SLICES, HW, HW), (8, 256, 256), (5, 129, 97),
                  # phase 7's find-best sweeps of the two 49-slice toy
                  # volumes at 64²: one volume a launch (plain), then both
                  # volumes' 67 padded output slices in one (batched)
-                 (8 * DS + 1, 64, 64), (2 * 67, 64, 64))
+                 (8 * DS + 1, 64, 64), (2 * 67, 64, 64),
+                 # phase 8's OASIS find-best: the validation volume's 44
+                 # slices at ds 4 synthesised into 173 of 208 x 176
+                 (43 * 4 + 1, 208, 176))
 KERNEL_ATOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
@@ -87,6 +107,22 @@ SMALL_CFG = dict(width=32, latent_width=8, depth=4, latent=6, colors=1,
 # find-best sweeps agree within SWEEP_ATOL (tests/test_torch_port_cli.py)
 CLI_EPOCHS = 2
 SWEEP_ATOL = 1e-4
+# phase 8: the README's production recipes from on-disk trees. OASIS-1's
+# T88 grid, thick-slice LR files; ACDC cines at their native spacing.
+# Only the patient counts and the epochs are cut.
+OASIS_PATIENTS, OASIS_SHAPE, OASIS_DS = 5, (176, 208, 176), 4
+ACDC_PATIENTS, ACDC_SHAPE = 3, (12, 10, 216, 256)     # frames, z, y, x
+ACDC_SPACING = (10.0, 1.5625, 1.5625)
+OASIS_ARGV = ["-d", "OASIS", "-m", "ae_combined", "-b", "16", "--width", "64",
+              "--latent_width", "16", "--latent", "128", "--downsample_steps",
+              str(OASIS_DS), "-e", "2", "--aug_patch_size", "220",
+              "--ex_loss_weight1", "0.001", "--image_mix_loss_func", "mse",
+              "--epoch_threshold", "-1"]
+ACDC_ARGV = ["-d", "ACDC", "-m", "ae_combined", "-b", "12", "--latent", "128",
+             "--downsample_steps", "2", "-e", "1", "--ex_loss_weight1", "0.05",
+             "--image_mix_loss_func", "mse", "--train_latent_interp",
+             "lanczos3"]
+AUG_ATOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -661,6 +697,367 @@ def check_cli(seed: int, card: str) -> dict:
     return out
 
 
+def _write_volumes(jobs) -> None:
+    """Write (path, array, spacing) NIfTI files on a thread pool (gzip
+    releases the interpreter lock)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from superresolution_aniso_mri_tpu_torch.utils import write_image
+
+    def one(job):
+        os.makedirs(os.path.dirname(job[0]), exist_ok=True)
+        write_image(job[0], job[1], spacing=job[2])
+
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        list(pool.map(one, jobs))
+
+
+def make_disk_trees(root: str, seed: int) -> dict:
+    """Phase 8's dataset trees under ``root`` (``$SR_DATA_ROOT``), in the
+    real layouts, with the port's own writers: OASIS (OASIS-1's T88 grid,
+    thick-slice LR files) and ACDC (4D cines). Returns the patient ids."""
+    from superresolution_aniso_mri_tpu_torch.config import save_string_lists
+    from superresolution_aniso_mri_tpu_torch.data import simulate_thick_slices
+    from superresolution_aniso_mri_tpu_torch.data.datasets import (
+        create_split_file)
+
+    oasis = [f"OAS1_{i + 1:04d}_MR1" for i in range(OASIS_PATIENTS)]
+    jobs = []
+    for i, pid in enumerate(oasis):
+        lr = simulate_thick_slices(phantom(seed + 200 + i, *OASIS_SHAPE),
+                                   float(OASIS_DS))
+        jobs.append((os.path.join(root, "OASIS", "nifti", pid,
+                                  f"{pid}_t88_gfc_{OASIS_DS}mm.nii.gz"),
+                     lr, (1.0, 1.0, 1.0)))
+    acdc = [f"patient{i + 1:03d}" for i in range(ACDC_PATIENTS)]
+    frames, slices, h, w = ACDC_SHAPE
+    for i, pid in enumerate(acdc):
+        cine = np.stack([phantom(seed + 300 + 20 * i + t, slices, h, w)
+                         for t in range(frames)]) * 400.0
+        jobs.append((os.path.join(root, "ACDC", "all_cardiac_phases", pid,
+                                  f"{pid}_4d.nii.gz"), cine, ACDC_SPACING))
+    _write_volumes(jobs)
+    # 3 training, 1 test, 1 validation patient (the JAX package's writer
+    # and shuffle)
+    create_split_file(os.path.join(root, "OASIS"), oasis, (3, 1, 1))
+    save_string_lists({"training": acdc[:2], "validation": acdc[2:],
+                       "test": []},
+                      os.path.join(root, "ACDC",
+                                   "train_val_test_split_sr.yaml"))
+    return {"oasis": oasis, "acdc": acdc}
+
+
+def _train_timed(fn, argv, exper: str) -> dict:
+    """Run a train command with a CUDA event recorded before every train
+    step; returns s/epoch (the gap between the numbered checkpoints),
+    ms/step (median of the gaps between consecutive steps of one epoch,
+    the first step of the run left out), which random draws the
+    augmentation made, and which samplers the loop used."""
+    import torch
+
+    from superresolution_aniso_mri_tpu_torch.cli import train_loop
+    from superresolution_aniso_mri_tpu_torch.data import transforms
+    from superresolution_aniso_mri_tpu_torch.train import trainer as trainer_mod
+
+    events, drawn, samplers = [], set(), []
+    train, draw = trainer_mod.Trainer.train, transforms.draw_augment_params
+    cache = train_loop.maybe_device_cache
+
+    def timed_train(self, batch):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append((self.epoch, ev))
+        return train(self, batch)
+
+    def recorded_draw(*a, **kw):
+        params = draw(*a, **kw)
+        drawn.update(k for k, v in vars(params).items() if v is not None)
+        return params
+
+    def recorded_cache(*a, **kw):
+        out = cache(*a, **kw)
+        samplers.append(type(out).__name__)
+        return out
+
+    trainer_mod.Trainer.train = timed_train
+    transforms.draw_augment_params = recorded_draw
+    train_loop.maybe_device_cache = recorded_cache
+    t0 = time.time()
+    try:
+        trainer = fn(argv)
+    finally:
+        trainer_mod.Trainer.train = train
+        transforms.draw_augment_params = draw
+        train_loop.maybe_device_cache = cache
+    wall = time.time() - t0
+    torch.cuda.synchronize()
+    gaps = [a[1].elapsed_time(b[1]) for a, b in zip(events[1:], events[2:])
+            if a[0] == b[0]]
+    epochs = sorted(int(f.split(".")[0]) for f in os.listdir(
+        os.path.join(exper, "models")) if f.split(".")[0].isdigit())
+    ends = [os.stat(os.path.join(exper, "models", f"{e}.models"))
+            .st_mtime_ns / 1e9 for e in epochs]
+    loss = np.load(os.path.join(exper, "losses_train.npz"))["loss_ae"]
+    if not np.isfinite(loss).all():
+        raise AssertionError(f"{exper}: losses are not finite: {loss}")
+    return {"s_per_epoch": (ends[-1] - ends[0]) / max(len(ends) - 1, 1)
+            if len(ends) > 1 else None,
+            "cli_s": wall, "steps": len(events),
+            "ms_per_step": float(np.median(gaps)),
+            "ms_per_step_min": float(np.min(gaps)),
+            "drawn": sorted(drawn), "samplers": samplers,
+            "loss_ae": loss.tolist(), "trainer": trainer}
+
+
+def augment_timings(dev, gen_seed: int, card: str) -> dict:
+    """Phase 8's augmentation on the card: ms per batch of
+    ``augment_batch`` (draws included) for four recipes, CUDA events; and
+    ``apply_augment`` on the card against the CPU for the same draws
+    (every op but noise)."""
+    import torch
+
+    from superresolution_aniso_mri_tpu_torch.cli.train_loop import (
+        build_augment_config)
+    from superresolution_aniso_mri_tpu_torch.data import (
+        apply_augment, augment_batch, draw_augment_params)
+
+    oasis = build_augment_config(dict(dataset="OASIS", width=64,
+                                      aug_patch_size=220))
+    every = dataclasses.replace(oasis, rotate_any=True, max_degree=359,
+                                elastic=True, perspective=True, blur=True,
+                                mirror=True, noise=True)
+    recipes = {
+        "oasis": (oasis, (16, 3, 220, 220)),
+        "dhcp_noise": (build_augment_config(dict(
+            dataset="dHCP", width=128, aug_patch_size=256, aug_noise=True)),
+            (12, 7, 256, 256)),
+        "acdc_lanczos3": (build_augment_config(dict(
+            dataset="ACDC", width=128, aug_patch_size=180)),
+            (12, 7, 180, 180)),
+        "every_op": (every, (16, 3, 220, 220)),
+    }
+    gen = torch.Generator(device=dev).manual_seed(gen_seed)
+    out: dict = {}
+    for name, (cfg, shape) in recipes.items():
+        x = torch.rand(shape, generator=gen, device=dev)
+        draws = torch.Generator().manual_seed(gen_seed)
+        y = augment_batch(x, cfg, draws)
+        if y.shape != (shape[0], shape[1], cfg.patch_size, cfg.patch_size) \
+                or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"augment {name}: {tuple(y.shape)}")
+        out[f"augment_{name}_ms"] = cuda_ms(
+            lambda: augment_batch(x, cfg, draws), 20)
+    no_noise = dataclasses.replace(every, noise=False)
+    x = torch.rand(16, 3, 220, 220, generator=gen, device=dev)
+    params = draw_augment_params(torch.Generator().manual_seed(gen_seed),
+                                 no_noise, 16, 220, 220)
+    got = apply_augment(x, params, no_noise)
+    want = apply_augment(x.cpu(), params, no_noise)
+    out["augment_card_vs_cpu"] = float((got.cpu() - want).abs().max())
+    log(f"augment timings [{card}]: " + json.dumps(out))
+    if not out["augment_card_vs_cpu"] <= AUG_ATOL:
+        raise AssertionError(f"apply_augment on the card differs from the "
+                             f"CPU: {out['augment_card_vs_cpu']}")
+    return out
+
+
+def profile_disk_steps(trainer, dev, path: str, steps: int = 10) -> None:
+    """Trace ``steps`` steps of the OASIS recipe as ``run_training`` runs
+    them (device slice cache, the random recipe, each batch made on the
+    training thread), after 5 untraced ones: device ms a step by kernel
+    kind and the idle share of the traced wall. The table goes to
+    ``path + ".disk.txt"``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from superresolution_aniso_mri_tpu_torch.cli.train_loop import (
+        build_augment_config, epoch_generator)
+    from superresolution_aniso_mri_tpu_torch.data import (
+        TripletSampler, device_batch, maybe_device_cache)
+    from superresolution_aniso_mri_tpu_torch.data.datasets import (
+        get_datasets)
+
+    args = trainer.args
+    sampler = maybe_device_cache(TripletSampler(
+        get_datasets(args)[0], int(args["downsample_steps"]),
+        args["slice_selection"], pad_size=int(args["aug_patch_size"]),
+        seed=int(args["seed"])), "1", dev)
+    aug = build_augment_config(args)
+    gen = epoch_generator(int(args["seed"]), 0)
+    batches = (device_batch(raw, aug, dev, 2, generator=gen)
+               for raw in sampler.epoch_batches(int(args["batch_size"])))
+    for _ in range(5):
+        trainer.train(next(batches))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            trainer.train(next(batches))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    events = prof.key_averages()
+    attr = ("self_device_time_total"
+            if hasattr(events[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    kinds: dict = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and e.key != "Activity Buffer Request":
+            kind = _kernel_kind(e.key)
+            kinds[kind] = kinds.get(kind, 0.0) + getattr(e, attr) / 1e3 / steps
+    busy = sum(kinds.values())
+    table = events.table(sort_by=attr, row_limit=40)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path + ".disk.txt", "w") as f:
+        f.write(table)
+    log("profile disk train step: device ms a step by kernel kind "
+        + json.dumps({k: round(v, 4) for k, v in sorted(kinds.items())})
+        + f"; busy {busy:.4f} ms of a traced {wall_ms:.4f} ms step, idle "
+        f"share {1 - busy / wall_ms:.3f}")
+
+
+def check_disk_recipes(seed: int, card: str, dev, profile_path=None) -> dict:
+    """Phase 8 (see the module docstring): the README's production
+    recipes from on-disk trees on the card; returns the SSIM launches of
+    find-best and the phase's timings."""
+    import tempfile
+
+    import torch
+
+    from superresolution_aniso_mri_tpu_torch.cli import entry
+    from superresolution_aniso_mri_tpu_torch.data import device_cache
+    from superresolution_aniso_mri_tpu_torch.ops import cuda_kernels
+    from superresolution_aniso_mri_tpu_torch.ops.metrics import ssim_volume
+
+    out: dict = {}
+    old_root = os.environ.get("SR_DATA_ROOT")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "data")
+        os.environ["SR_DATA_ROOT"] = root
+        try:
+            t0 = time.perf_counter()
+            ids = make_disk_trees(root, seed)
+            out["fabricate_s"] = time.perf_counter() - t0
+            log(f"disk: OASIS {len(ids['oasis'])} x {OASIS_SHAPE}, ACDC "
+                f"{len(ids['acdc'])} x {ACDC_SHAPE} written in "
+                f"{out['fabricate_s']:.1f} s")
+
+            # the auto cache budget on this card, against the README
+            # OASIS recipe's 200 training patients
+            budget = device_cache.auto_budget_bytes(dev)
+            recipe = 200 * OASIS_SHAPE[0] * 220 * 220 * 4
+            out["cache_auto_budget_mb"] = budget / 2 ** 20
+            log(f"disk: auto cache budget {budget / 2**20:.0f} MB; the "
+                f"README OASIS recipe's 200 training patients need "
+                f"{recipe / 2**20:.0f} MB → cache "
+                f"{'on' if recipe <= budget else 'off'}")
+            if recipe > budget:
+                raise AssertionError("the auto budget leaves the README "
+                                     "OASIS recipe uncached on this card")
+
+            # 1. train-brain -d OASIS (train_brain_aesr.py:8-10, MSE)
+            # with the device slice cache and without it, each twice
+            for name, mode in (("cache", "auto"), ("nocache", "0"),
+                               ("nocache2", "0"), ("cache2", "auto")):
+                exper = os.path.join(tmp, f"oasis_{name}")
+                res = _train_timed(entry.train_brain, OASIS_ARGV + [
+                    "-o", tmp, "-id", f"oasis_{name}",
+                    "--device_data_cache", mode], exper)
+                want = ("DeviceCachedSampler" if mode == "auto"
+                        else "TripletSampler")
+                log(f"disk train-brain OASIS ({name}): "
+                    + json.dumps({k: v for k, v in res.items()
+                                  if k != "trainer"}))
+                if res["samplers"] != [want, want]:
+                    raise AssertionError(f"samplers {res['samplers']}, "
+                                         f"expected {want}")
+                if not {"crop_top", "rot90_k", "gain"} <= set(res["drawn"]):
+                    raise AssertionError(f"random recipe not drawn: "
+                                         f"{res['drawn']}")
+                for k in ("s_per_epoch", "ms_per_step", "ms_per_step_min",
+                          "cli_s", "steps"):
+                    out[f"oasis_{name}_{k}"] = res[k]
+                if profile_path and name == "cache":
+                    profile_disk_steps(res["trainer"], dev, profile_path)
+            exper = os.path.join(tmp, "oasis_cache")
+
+            # 2. find-best-model on the validation patient, SSIM counted;
+            # the pairs it scores are kept for the check below
+            scored, kernel = [], cuda_kernels.ssim_volume_cuda
+
+            def kept_kernel(ref, dist, data_range=1.0, win_size=7):
+                got = kernel(ref, dist, data_range, win_size)
+                scored.append((ref.clone(), dist.clone(), data_range,
+                               win_size, got.clone()))
+                return got
+
+            cuda_kernels.ssim_volume_cuda = kept_kernel
+            try:
+                cuda_kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                best = entry.find_best_model(["--exper_dir", exper])
+                torch.cuda.synchronize()
+                out["find_best_s_per_checkpoint"] = (
+                    (time.perf_counter() - t0) / len(best["epochs"]))
+                out["find_best_launches"] = \
+                    cuda_kernels.LAUNCHES["ssim_slice"]
+            finally:
+                cuda_kernels.ssim_volume_cuda = kernel
+            # the kernel against the plain version on those exact pairs
+            if len(scored) != out["find_best_launches"]:
+                raise AssertionError(f"{len(scored)} pairs kept for "
+                                     f"{out['find_best_launches']} launches")
+            out["find_best_kernel_err"] = 0.0
+            for ref, dist, data_range, win, got in scored:
+                want = ssim_volume(ref, dist, data_range, win)
+                again = kernel(ref, dist, data_range, win)
+                err = float((got - want).abs().max())
+                out["find_best_kernel_err"] = max(
+                    out["find_best_kernel_err"], err)
+                log(f"kernel ssim_slice {tuple(ref.shape)} win={win} "
+                    f"(OASIS find-best): max_abs_err={err:.3e}")
+                if not err <= KERNEL_ATOL or not torch.equal(got, again):
+                    raise AssertionError(
+                        f"SSIM kernel disagrees with the plain version on "
+                        f"find-best's pair {tuple(ref.shape)}: {err:.3e}")
+            log(f"disk find-best OASIS: epochs {best['epochs']}, SSIM "
+                f"{best['history']['ssim']}, launches "
+                f"{out['find_best_launches']} (expected "
+                f"{len(best['epochs'])}), "
+                f"{out['find_best_s_per_checkpoint']:.3f} s/checkpoint")
+            if best["epochs"] != [0, 1] or out["find_best_launches"] != 2 \
+                    or not np.isfinite(best["history"]["ssim"]).all():
+                raise AssertionError("find-best-model did not score both "
+                                     "checkpoints through the SSIM kernel")
+
+            # 3. train-cardiac -d ACDC, lanczos3 (README cardiac row, MSE)
+            exper = os.path.join(tmp, "acdc")
+            t0 = time.time()
+            trainer = entry.train_cardiac(ACDC_ARGV + ["-o", tmp, "-id",
+                                                       "acdc"])
+            out["acdc_cli_s"] = time.time() - t0
+            out["acdc_steps"] = trainer.iters - 1
+            loss = np.load(os.path.join(exper, "losses_train.npz"))
+            models = sorted(os.listdir(os.path.join(exper, "models")))
+            log(f"disk train-cardiac ACDC lanczos3: {out['acdc_steps']} "
+                f"steps, loss_ae {loss['loss_ae'].tolist()}, models "
+                f"{models}, {out['acdc_cli_s']:.1f} s")
+            if models != ["last.models"] or not np.isfinite(
+                    loss["loss_ae"]).all() or out["acdc_steps"] < 1:
+                raise AssertionError("train-cardiac ACDC did not train")
+        finally:
+            if old_root is None:
+                os.environ.pop("SR_DATA_ROOT", None)
+            else:
+                os.environ["SR_DATA_ROOT"] = old_root
+
+    # 4. the augmentation alone, and card against CPU
+    out.update(augment_timings(dev, seed, card))
+    log(f"disk timings [{card}]: " + json.dumps(out))
+    return out
+
+
 def _kernel_kind(name: str) -> str:
     """Bucket of a device event by its kernel name."""
     low = name.lower()
@@ -901,6 +1298,9 @@ def main() -> int:
     # ---- 7. experiment-directory CLIs --------------------------------
     cli = check_cli(args.seed, card)
 
+    # ---- 8. production recipes from disk -----------------------------
+    disk = check_disk_recipes(args.seed, card, dev, args.profile)
+
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)  # name and power limit, as nvidia-smi prints them
     print(json.dumps({"kernels": [{
@@ -912,8 +1312,10 @@ def main() -> int:
             "serve_score": launches["ssim_slice"],
             "train_serve_score": train["launches"]["ssim_slice"],
             "cli_find_best": cli["find_best_plain_launches"],
-            "cli_find_best_batched": cli["find_best_batched_launches"]},
-        "max_abs_err": kcheck["max_abs_err"], "ok": True,
+            "cli_find_best_batched": cli["find_best_batched_launches"],
+            "cli_oasis_find_best": disk["find_best_launches"]},
+        "max_abs_err": max(kcheck["max_abs_err"],
+                           disk["find_best_kernel_err"]), "ok": True,
         "ms": kernel_ms, "ms_cold": kernel_cold_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "bound_share": bound_ms / kernel_ms,

@@ -9,12 +9,20 @@ previews at their intervals, best aliases and checkpoints,
 ``--model_filename`` / ``--auto_resume``, and KeyboardInterrupt →
 ``last.models``.
 
-Not ported, and raising before anything is written: the random
-augmentations (every dataset but MNIST3D; ROADMAP item 6), MNISTRoto's
-on-the-fly sampler (item 15), ``--profile_dir`` (item 16), multi-host
-runs (item 11), and what ``Trainer`` refuses. The JAX package's device
-slice cache and prefetch thread are not ported either (item 6): each
-batch is uploaded when the step takes it.
+With ``--device_data_cache`` on (``auto``: when the padded stacks fit
+the budget, ``data/device_cache.py::auto_budget_bytes``) the slices stay
+on the device and a batch is one gather; without it each batch is
+assembled on the host and uploaded from pinned memory. Batches are made
+on the training thread: a prefetch thread was measured no faster on the
+H100 with the cache or without it (PERF.md §6). The random
+augmentations draw from one CPU ``torch.Generator`` per epoch, seeded
+from ``(seed, epoch)``, so a resumed run redraws the stream of the
+epoch it resumes.
+
+Not ported, and raising before anything is written: loss masks
+(``--get_masks``, ROADMAP item 9), MNISTRoto's on-the-fly sampler (item
+15), ``--profile_dir`` (item 16), multi-host runs (item 11), and what
+``Trainer`` and ``get_datasets`` refuse.
 """
 from __future__ import annotations
 
@@ -23,11 +31,12 @@ import time
 from typing import Dict
 
 import numpy as np
+import torch
 
 from ..config.net_config import NetworkConfig, merge_args_architecture
 from ..data import AugmentConfig, TripletSampler, device_batch
 from ..data.datasets import get_datasets
-from ..data.transforms import _random_ops
+from ..data.device_cache import maybe_device_cache
 from ..train import Trainer
 from ..utils.grids import generate_recon_grid, save_image_grid
 
@@ -80,6 +89,14 @@ def rehydrate_resume_loss_config(args_dict: Dict) -> list:
     return took
 
 
+def epoch_generator(seed: int, epoch: int) -> torch.Generator:
+    """The CPU generator of one epoch's augmentation draws, seeded from
+    ``(seed, epoch)`` (the JAX loop folds the epoch into its key)."""
+    state = np.random.SeedSequence([int(seed) % 2 ** 64, int(epoch)])
+    return torch.Generator().manual_seed(
+        int(state.generate_state(1, np.uint64)[0]))
+
+
 def _refuse_unported(merged: Dict) -> None:
     """Raise for the options of the JAX loop the port does not run."""
     if merged.get("profile_dir"):
@@ -94,12 +111,11 @@ def _refuse_unported(merged: Dict) -> None:
             or merged.get("coordinator_address"):
         raise NotImplementedError(
             "multi-host training is not ported yet (ROADMAP item 11)")
-    ops = _random_ops(build_augment_config(merged), need_crop=True)
-    if ops:
+    if merged.get("get_masks"):
         raise NotImplementedError(
-            f"dataset {merged['dataset']!r} trains with the random "
-            f"augmentations {ops}, which are not ported yet (ROADMAP item "
-            f"6); the port trains MNIST3D (deterministic recipe)")
+            "--get_masks: the loss masks (data/masks.py) need labeled "
+            "volumes, which come with the multichannel family (ROADMAP "
+            "item 9)")
 
 
 def _generate_volume_previews(trainer, val_vols, merged: Dict,
@@ -144,18 +160,20 @@ def run_training(args_dict: Dict, verbose: bool = True) -> Trainer:
     train_vols, val_vols = get_datasets(merged)
     ds = int(merged.get("downsample_steps") or 2)
     pad = int(merged.get("aug_patch_size") or merged["width"])
-    use_masks = bool(merged.get("get_masks"))
     tli = str(merged.get("train_latent_interp") or "linear")
     latent_taps = {"cubic": 4, "lanczos3": 6}.get(tli, 2)
+    seed = int(merged.get("seed", 0))
     sampler = TripletSampler(
         train_vols, ds, merged.get("slice_selection", "adjacent_plus"),
-        pad_size=pad, seed=int(merged.get("seed", 0)),
-        use_masks=use_masks, latent_taps=latent_taps)
+        pad_size=pad, seed=seed, latent_taps=latent_taps)
     val_sampler = TripletSampler(val_vols, ds, "adjacent_plus",
-                                 pad_size=pad,
-                                 seed=int(merged.get("seed", 0)) + 1,
-                                 use_masks=use_masks,
+                                 pad_size=pad, seed=seed + 1,
                                  latent_taps=latent_taps)
+    # device-resident slice cache: the padded stacks uploaded once, each
+    # batch gathered on the device (the same batches as the host path)
+    cache_mode = merged.get("device_data_cache", "auto")
+    sampler = maybe_device_cache(sampler, cache_mode, dev, verbose=verbose)
+    val_sampler = maybe_device_cache(val_sampler, cache_mode, dev)
     aug_cfg = build_augment_config(merged)
     val_cfg = AugmentConfig(patch_size=int(merged["width"]),
                             aug_patch_size=aug_cfg.aug_patch_size,
@@ -207,15 +225,14 @@ def run_training(args_dict: Dict, verbose: bool = True) -> Trainer:
         if watchdog is not None:
             watchdog.beat()
 
-    def to_device(raw, cfg):
-        return device_batch(raw, cfg, dev, latent_taps=latent_taps)
-
     try:
         for epoch in range(trainer.epoch, epochs):
             t0 = time.time()
             last_batch = None
+            gen = epoch_generator(seed, epoch)
             for raw in sampler.epoch_batches(batch_size):
-                last_batch = to_device(raw, aug_cfg)
+                last_batch = device_batch(raw, aug_cfg, dev, latent_taps,
+                                          generator=gen)
                 trainer.train(last_batch)
                 _beat()
             # end-of-epoch validation over several batches, so best-model
@@ -223,8 +240,9 @@ def run_training(args_dict: Dict, verbose: bool = True) -> Trainer:
             n_val = int(merged.get("num_val_batches", 4) or 4)
             val_batch = None
             for _ in range(n_val):
-                val_batch = to_device(
-                    val_sampler.sample_batch(test_batch_size), val_cfg)
+                val_batch = device_batch(
+                    val_sampler.sample_batch(test_batch_size), val_cfg, dev,
+                    latent_taps)
                 trainer.validate(val_batch)
                 _beat()
             trainer.show_loss_on_tensorboard("train")

@@ -1,7 +1,11 @@
 """Configuration: settings persistence, CLI arguments, routing."""
 from .settings import (SETTING_DEFAULTS, apply_setting_defaults,
-                       dump_settings, load_settings, parse_settings,
-                       save_experiment_settings)
+                       dump_settings, dump_string_lists, load_settings,
+                       load_string_lists, parse_settings,
+                       parse_string_lists, save_experiment_settings,
+                       save_string_lists)
 
 __all__ = ["SETTING_DEFAULTS", "apply_setting_defaults", "dump_settings",
-           "load_settings", "parse_settings", "save_experiment_settings"]
+           "dump_string_lists", "load_settings", "load_string_lists",
+           "parse_settings", "parse_string_lists",
+           "save_experiment_settings", "save_string_lists"]

@@ -104,8 +104,8 @@ def parse_args(argv=None):
                              "HBM and gather training batches on device "
                              "(per-step host traffic drops to the index "
                              "scalars); 'auto' enables when they fit "
-                             "SR_DEVICE_CACHE_MB (default 512) on a "
-                             "single-device run")
+                             "SR_DEVICE_CACHE_MB, by default a quarter of "
+                             "the card's free memory (512 MB on the CPU)")
     parser.add_argument("--auto_resume", action="store_true",
                         help="continue from the newest numbered checkpoint "
                              "in the experiment dir (elastic restarts)")

@@ -10,13 +10,17 @@ string that would read back as another type is quoted), its float
 spelling and its folding at width 80. ``parse_settings`` reads what it
 writes. Anything else (nested values, lists, other types, YAML the
 emitter never writes) raises ``ValueError``.
+
+Dataset split files are a mapping of lists of patient ids:
+``dump_string_lists`` writes ``yaml.safe_dump``'s bytes for such a
+mapping, and ``parse_string_lists`` reads it in block or flow style.
 """
 from __future__ import annotations
 
 import math
 import os
 import re
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -309,9 +313,8 @@ class _Writer:
         self.indicator('"', False)
 
 
-def dump_settings(settings: Dict[str, Any]) -> str:
-    """``yaml.safe_dump(settings, sort_keys=True)`` of a flat mapping."""
-    for key in settings:
+def _check_keys(mapping: Dict[str, Any]) -> None:
+    for key in mapping:
         if not isinstance(key, str):
             raise ValueError(f"settings key {key!r}: keys must be str")
         # PyYAML writes a key of 123+ characters (with its '!!str' tag)
@@ -319,6 +322,11 @@ def dump_settings(settings: Dict[str, Any]) -> str:
         if not key or any(ch in _BREAKS for ch in key) or len(key) > 122:
             raise ValueError(f"settings key {key!r}: keys must be one "
                              f"non-empty line of at most 122 characters")
+
+
+def dump_settings(settings: Dict[str, Any]) -> str:
+    """``yaml.safe_dump(settings, sort_keys=True)`` of a flat mapping."""
+    _check_keys(settings)
     if not settings:
         return "{}\n"
     w = _Writer()
@@ -416,6 +424,8 @@ def _fold(lines: List[str]) -> str:
 
 
 class _Reader:
+    takes = "the settings reader takes a flat mapping of scalars"
+
     def __init__(self, text: str, where: str):
         self.s = text
         self.i = 0
@@ -423,8 +433,7 @@ class _Reader:
 
     def error(self, msg: str) -> ValueError:
         line = self.s.count("\n", 0, self.i) + 1
-        return ValueError(f"{self.where}: line {line}: {msg} (the settings "
-                          f"reader takes a flat mapping of scalars)")
+        return ValueError(f"{self.where}: line {line}: {msg} ({self.takes})")
 
     def single_quoted(self) -> str:
         self.i += 1
@@ -547,6 +556,218 @@ def parse_settings(text: str, where: str = "settings") -> Dict[str, Any]:
                           f"{r.s[r.i:rest_end]!r}")
         r.i = rest_end
     return out
+
+
+# ---------------------------------------------------------------------------
+# split files: a mapping of lists of scalars
+# ---------------------------------------------------------------------------
+
+def dump_string_lists(mapping: Dict[str, Sequence]) -> str:
+    """``yaml.safe_dump(mapping)`` of a mapping of lists of scalars (a
+    split file: keys sorted, block style, an empty list as ``[]``)."""
+    _check_keys(mapping)
+    if not mapping:
+        return "{}\n"
+    w = _Writer()
+    for key in sorted(mapping):
+        items = mapping[key]
+        if not isinstance(items, (list, tuple)):
+            raise ValueError(f"key {key!r}: {type(items).__name__} values "
+                             f"are not supported (lists of scalars only)")
+        w.write_indent()
+        w.scalar(key, True, split=False)
+        w.indicator(":", False)
+        if not items:
+            w.indicator("[", True)
+            w.indicator("]", False)
+        for item in items:
+            text, is_str = _represent(key, item)
+            w.write_indent()
+            w.indicator("-", True)
+            w.indent = _INDENT
+            w.scalar(text, is_str, split=True)
+            w.indent = 0
+    w.write_indent()
+    return "".join(w.out)
+
+
+class _ListReader(_Reader):
+    """A mapping of lists of scalars, in block or flow style."""
+
+    takes = "a split file is a mapping of lists of scalars"
+
+    def peek(self) -> str:
+        return self.s[self.i:self.i + 1]
+
+    def skip_spaces(self, newlines: bool = False) -> None:
+        while self.peek() in (" ", "\t") or (newlines and self.peek() == "\n"):
+            self.i += 1
+
+    def skip_blank_lines(self) -> None:
+        """To the start of the next line that holds more than spaces or a
+        comment (or to the end)."""
+        while self.i < len(self.s):
+            end = self.s.find("\n", self.i)
+            end = len(self.s) if end < 0 else end
+            line = self.s[self.i:end].strip(" \t")
+            if line and not line.startswith("#"):
+                return
+            self.i = min(end + 1, len(self.s))
+
+    def end_of_line(self) -> None:
+        self.skip_spaces()
+        if self.peek() == "#":
+            while self.peek() not in ("", "\n"):
+                self.i += 1
+        if self.peek() not in ("", "\n"):
+            raise self.error(f"trailing content {self.peek()!r}")
+
+    def item(self, key: str, flow: bool, indent: int = 0):
+        """One list item: quoted, or plain (in block style with its
+        more-indented continuation lines folded in), read as
+        ``yaml.safe_load`` reads it."""
+        ch = self.peek()
+        if ch == "'":
+            return self.single_quoted()
+        if ch == '"':
+            return self.double_quoted()
+        if ch in "[]{}&*!|>%@`" or (not flow and ch == "-"
+                                    and self.s[self.i + 1:self.i + 2]
+                                    in (" ", "\n", "")):
+            raise self.error(f"key {key!r}: nested content in a list")
+        stop = re.compile(r"[,\[\]{}\n]| #" if flow else r"\n| #")
+        m = stop.search(self.s, self.i)
+        end = len(self.s) if m is None else m.start()
+        lines, self.i = [self.s[self.i:end].strip(" \t")], end
+        cont = "\n" + " " * (indent + 1)
+        while not flow and self.s.startswith(cont, self.i):
+            end = self.s.find("\n", self.i + 1)
+            end = len(self.s) if end < 0 else end
+            line = self.s[self.i + 1:end].strip(" \t")
+            if not line or line.startswith("#") or " #" in line:
+                break
+            lines.append(line)
+            self.i = end
+        return _plain_value(key, _fold(lines))
+
+    def flow_sequence(self, key: str) -> list:
+        self.i += 1
+        items: list = []
+        while True:
+            self.skip_spaces(newlines=True)
+            if self.peek() == "]":
+                self.i += 1
+                return items
+            items.append(self.item(key, flow=True))
+            self.skip_spaces(newlines=True)
+            if self.peek() == ",":
+                self.i += 1
+            elif self.peek() != "]":
+                raise self.error(f"key {key!r}: expected ',' or ']'")
+
+    def block_sequence(self, key: str) -> list:
+        items: list = []
+        indent = None
+        while True:
+            self.skip_blank_lines()
+            start = self.i
+            n = len(self.s[start:]) - len(self.s[start:].lstrip(" "))
+            if not (self.s.startswith("-", start + n) and self.s[
+                    start + n + 1:start + n + 2] in (" ", "\n", "")):
+                if indent is None:
+                    raise self.error(f"key {key!r}: expected a list")
+                return items
+            if indent is None:
+                indent = n
+            elif n != indent:
+                raise self.error(f"key {key!r}: list items at different "
+                                 f"indents")
+            self.i = start + n + 1
+            self.skip_spaces()
+            if self.peek() in ("", "\n", "#"):
+                items.append(None)
+            else:
+                items.append(self.item(key, flow=False, indent=indent))
+            self.end_of_line()
+
+    def key(self) -> str:
+        key, quoted = self.scalar(None)
+        if not quoted:
+            key = key.rstrip(" \t")
+            if _resolve(key) != _STR:
+                raise self.error(f"non-string key {key!r}")
+        self.skip_spaces()
+        if self.peek() != ":":
+            raise self.error("expected ':' after the key")
+        self.i += 1
+        self.skip_spaces()
+        return key
+
+    def flow_mapping(self) -> Dict[str, list]:
+        self.i += 1
+        out: Dict[str, list] = {}
+        while True:
+            self.skip_spaces(newlines=True)
+            if self.peek() == "}":
+                self.i += 1
+                return out
+            key = self.key()
+            if key in out:
+                raise self.error(f"duplicate key {key!r}")
+            self.skip_spaces(newlines=True)
+            if self.peek() != "[":
+                raise self.error(f"key {key!r}: expected a list")
+            out[key] = self.flow_sequence(key)
+            self.skip_spaces(newlines=True)
+            if self.peek() == ",":
+                self.i += 1
+            elif self.peek() != "}":
+                raise self.error("expected ',' or '}'")
+
+
+def parse_string_lists(text: str, where: str = "split file"
+                       ) -> Dict[str, list]:
+    """Read a mapping of lists of scalars, block style (what
+    ``dump_string_lists`` and ``yaml.safe_dump`` write) or flow style
+    (``{training: [a, b], test: []}``, ``training: [a, b]``). Items read
+    as ``yaml.safe_load`` reads them (``- 1000`` is an int). Anything
+    else raises ``ValueError`` naming ``where``."""
+    r = _ListReader(text, where)
+    r.skip_blank_lines()
+    if r.peek() == "{":
+        out = r.flow_mapping()
+        r.end_of_line()
+        r.skip_blank_lines()
+        if r.i < len(r.s):
+            raise r.error("content after the mapping")
+        return out
+    out: Dict[str, list] = {}
+    while True:
+        r.skip_blank_lines()
+        if r.i >= len(r.s):
+            return out
+        if r.peek() in (" ", "\t", "-"):
+            raise r.error("expected a key at the start of the line")
+        key = r.key()
+        if key in out:
+            raise r.error(f"duplicate key {key!r}")
+        if r.peek() == "[":
+            out[key] = r.flow_sequence(key)
+            r.end_of_line()
+        else:
+            r.end_of_line()
+            out[key] = r.block_sequence(key)
+
+
+def load_string_lists(fname: str) -> Dict[str, list]:
+    with open(fname, "r") as fp:
+        return parse_string_lists(fp.read(), fname)
+
+
+def save_string_lists(mapping: Dict[str, Sequence], fname: str) -> None:
+    text = dump_string_lists(mapping)
+    with open(fname, "w") as fp:
+        fp.write(text)
 
 
 # ---------------------------------------------------------------------------

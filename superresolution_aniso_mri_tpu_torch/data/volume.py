@@ -2,7 +2,8 @@
 helpers, and the slice-pairing helpers of the triplet sampler.
 
 A numpy/scipy copy of ``superresolution_aniso_mri_tpu/data/volume.py``
-(``Volume``, ``rescale_intensities``, ``apply_2d_zoom_3d/_4d``,
+(``Volume``, ``rescale_intensities``, ``simulate_thick_slices``,
+``create_lr_volume``, ``apply_2d_zoom_3d/_4d``,
 ``get_random_adjacent_slice``, ``determine_interpol_coefficients``), so
 the port imports nothing of the JAX package.
 """
@@ -71,6 +72,26 @@ def rescale_intensities(im: np.ndarray, percs=(0, 100),
         # the training batch with NaNs
         return np.zeros_like(im, dtype=dtype)
     return ((im.astype(dtype) - min_val) / (max_val - min_val)).clip(0, 1)
+
+
+def simulate_thick_slices(img3d: np.ndarray,
+                          slice_thickness: float) -> np.ndarray:
+    """Through-plane PSF simulation: a 1-D gaussian along z with
+    sigma = thickness / 2.355 (the FWHM relation; reference:
+    datasets/common_brains.py:37-44)."""
+    sigma = slice_thickness / 2.355
+    return scipy.ndimage.gaussian_filter1d(
+        img3d.astype(np.float32), sigma, axis=0)
+
+
+def create_lr_volume(img3d: np.ndarray, downsample_steps: int,
+                     subsample: bool = False) -> np.ndarray:
+    """Blur to a ``downsample_steps`` mm-equivalent thickness; optionally
+    keep every ds-th slice (reference: datasets/OASIS/dataset.py:104-122)."""
+    lr = simulate_thick_slices(img3d, float(downsample_steps))
+    if subsample:
+        lr = lr[::downsample_steps]
+    return lr
 
 
 def apply_2d_zoom_3d(arr3d: np.ndarray, spacing, new_spacing,

@@ -332,7 +332,7 @@ def test_port_train_resumes_and_saves_on_interrupt(dirs, tmp_path,
 
 
 @pytest.mark.parametrize("extra, item", [
-    (["-d", "OASIS"], "item 6"),
+    (["--get_masks"], "item 9"),
     (["-d", "MNISTRoto"], "item 15"),
     (["--profile_dir", "PROFILE"], "item 16"),
     (["--ema_decay", "0.99"], "item 7"),

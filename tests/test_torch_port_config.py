@@ -231,8 +231,8 @@ def test_get_datasets_volumes_are_bitwise_jax(extra, tmp_path):
 def test_on_disk_datasets_raise_with_roadmap_item():
     from superresolution_aniso_mri_tpu_torch.data.datasets import get_datasets
 
-    with pytest.raises(NotImplementedError, match="item 12"):
-        get_datasets(dict(dataset="OASIS", width=32))
+    with pytest.raises(NotImplementedError, match="item 9"):
+        get_datasets(dict(dataset="ACDCLBL", width=32))
 
 
 def test_volume_helpers_match_jax():

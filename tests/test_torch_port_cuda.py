@@ -267,3 +267,44 @@ def test_cli_train_generate_find_best_on_card(cuda, tmp_path):
     for k, v in history[False].items():
         np.testing.assert_allclose(history[True][k], v, atol=1e-4,
                                    err_msg=k)
+
+
+def test_augmentation_and_device_cache_on_card(cuda):
+    """apply_augment on the card equals the CPU for the same draws (every
+    op but noise, whose field comes from the device's generator) within
+    1e-5; batches gathered from the device slice cache equal the host
+    sampler's batches uploaded from pinned memory (random recipe, noise
+    included)."""
+    from superresolution_aniso_mri_tpu_torch.data import (
+        AugmentConfig, DeviceCachedSampler, TripletSampler, Volume,
+        apply_augment, device_batch, draw_augment_params)
+
+    cfg = AugmentConfig(patch_size=64, aug_patch_size=96, rotate_any=True,
+                        max_degree=359, elastic=True, perspective=True,
+                        blur=True, mirror=True)
+    x = torch.from_numpy(np.stack([_pair((3, 100, 90), seed=s)[0]
+                                   for s in range(6)]))
+    params = draw_augment_params(torch.Generator().manual_seed(0), cfg,
+                                 *x.shape[:1], *x.shape[2:])
+    got = apply_augment(x.to(cuda), params, cfg)
+    want = apply_augment(x, params, cfg)
+    assert got.shape == want.shape == (6, 3, 64, 64)
+    assert float((got.cpu() - want).abs().max()) <= 1e-5
+
+    rng = np.random.RandomState(0)
+    vols = [Volume(image=rng.rand(11, 72, 80).astype(np.float32),
+                   spacing=np.ones(3)) for _ in range(3)]
+    recipe = AugmentConfig(patch_size=32, aug_patch_size=80, noise=True)
+    batches = []
+    for cached in (False, True):
+        sampler = TripletSampler(vols, 2, pad_size=80, seed=1)
+        if cached:
+            sampler = DeviceCachedSampler(sampler, cuda)
+        gen = torch.Generator().manual_seed(5)
+        batches.append([device_batch(r, recipe, cuda, generator=gen)
+                        for r in sampler.epoch_batches(4)])
+    assert len(batches[0]) == len(batches[1]) == 8
+    for a, b in zip(*batches):
+        assert sorted(a) == sorted(b)
+        for k in b:
+            assert torch.equal(a[k], b[k]), k

@@ -71,7 +71,7 @@ def test_triplet_sampler_label_channels_are_bitwise_jax():
 
 
 def test_triplet_sampler_masks_raise():
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 9"):
         TripletSampler(_volumes(Volume, labels=True), 2, use_masks=True)
 
 
@@ -102,10 +102,15 @@ def test_deterministic_augment_matches_jax(case):
     "rot90", "intensity", "rotate_any", "noise", "blur", "mirror", "elastic",
     "perspective", "random_crop", "crop_next_to_center"])
 def test_random_augment_raises(flag):
+    """A random op draws from a CPU generator: without one it raises;
+    with one it runs (tests/test_torch_port_augment.py holds it against
+    JAX)."""
     cfg = AugmentConfig(**{**_det(patch_size=16), flag: True})
     x = torch.zeros(2, 3, 20, 20)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="torch.Generator"):
         augment_batch(x, cfg)
+    out = augment_batch(x, cfg, torch.Generator().manual_seed(0))
+    assert out.shape == (2, 3, 16, 16)
 
 
 def test_random_crop_is_not_drawn_when_no_crop_is_needed():

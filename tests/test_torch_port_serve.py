@@ -335,6 +335,8 @@ def test_port_imports_without_jax():
             "import superresolution_aniso_mri_tpu_torch.train\n"
             "import superresolution_aniso_mri_tpu_torch.data\n"
             "import superresolution_aniso_mri_tpu_torch.data.datasets\n"
+            "import superresolution_aniso_mri_tpu_torch.data.device_cache\n"
+            "import superresolution_aniso_mri_tpu_torch.config.data_config\n"
             "import superresolution_aniso_mri_tpu_torch.config\n"
             "import superresolution_aniso_mri_tpu_torch.config.arguments\n"
             "import superresolution_aniso_mri_tpu_torch.utils.grids\n"
@@ -373,4 +375,5 @@ def test_port_sources_import_nothing_of_the_jax_package():
             "watchdog.py", "datasets.py", "synthetic.py", "entry.py",
             "train_loop.py", "__main__.py", "create_hr_images.py",
             "find_best_model.py", "sweep.py",
-            "evaluate_image.py"} <= set(scanned)
+            "evaluate_image.py", "transforms.py", "device_cache.py",
+            "data_config.py"} <= set(scanned)
