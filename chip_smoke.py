@@ -7,7 +7,8 @@ hand-written kernel against its plain PyTorch version.
     python3 chip_smoke.py                        # one card, no arguments
     python3 chip_smoke.py --profile out/prof.txt # + trace one serve+score,
                                                  # one train step and 10
-                                                 # steps of phase 8's OASIS
+                                                 # steps each of phase 8's
+                                                 # and phase 9's OASIS
 
 Phases (any failure ends the run with a non-zero exit):
   1. device: the card's name and power limit (nvidia-smi);
@@ -60,15 +61,32 @@ Phases (any failure ends the run with a non-zero exit):
      with ``--train_latent_interp lanczos3`` (3 cines of [12, 10, 216,
      256] at 10 x 1.5625 x 1.5625 mm, 1 epoch); ``augment_batch`` ms per
      batch for the OASIS, dHCP-noise, ACDC-lanczos3 and every-op recipes;
-     ``apply_augment`` on the card against the CPU (every op but noise).
+     ``apply_augment`` on the card against the CPU (every op but noise);
+  9. the perceptual and SSIM losses, LPIPS scoring and the conventional
+     baselines, on phase 8's trees: train-brain -d OASIS with the
+     recipe's flags but ``--image_mix_loss_func`` (so ae_combined trains
+     its default perceptual mix loss, VGG LPIPS over the shipped lins,
+     ``lpips_mode`` in settings.yaml checked), 2 epochs, ms/step beside
+     phase 8's MSE ms/step; one epoch each of ``perceptual_enc``,
+     ``mse --use_ssim_loss`` and train-cardiac -d ACDC in bfloat16 with
+     the perceptual default (the VGG stack in bfloat16); 3 small-config
+     perceptual steps on the card against the CPU;
+     ``create_hr_images(compute_percept_metrics=True)`` on the
+     perceptual run's caisr checkpoint over the OASIS validation volume
+     and each of the four ``FILTER_BENCH`` baselines on it (s/volume,
+     SSIM/PSNR/VIF, the SSIM launches counted and held against the
+     plain version); LPIPS of a [175, 220, 220] pair timed with CUDA
+     events, its peak memory, and card against CPU on 4 slices.
 The main path (serve linear → score) runs with every kernel launch count
 set to 0 just before it and read just after; so do the train phase's
 path (serve the trained checkpoint → score), each find-best sweep of
-phase 7 and phase 8's find-best. The line before the last lists every kernel with its check,
+phase 7, phase 8's find-best and phase 9's scoring of the perceptual
+checkpoint and of the baselines. The line before the last lists every kernel with its check,
 launches (``launches``: the main path; ``launches_by_path``: every
 counted path) and times; the last line is the device summary.
 """
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -123,6 +141,11 @@ ACDC_ARGV = ["-d", "ACDC", "-m", "ae_combined", "-b", "12", "--latent", "128",
              "--image_mix_loss_func", "mse", "--train_latent_interp",
              "lanczos3"]
 AUG_ATOL = 1e-5
+# phase 9: LPIPS on the card against the CPU, float32 with TF32 off.
+# cuDNN and oneDNN sum the 13 convolutions (up to 4608 terms a pixel)
+# in other orders: 1.5e-5 at 220² on an H100 80GB HBM3 at 700 W; TF32
+# would give ~1e-3
+LPIPS_CARD_RTOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -751,15 +774,16 @@ def _train_timed(fn, argv, exper: str) -> dict:
     """Run a train command with a CUDA event recorded before every train
     step; returns s/epoch (the gap between the numbered checkpoints),
     ms/step (median of the gaps between consecutive steps of one epoch,
-    the first step of the run left out), which random draws the
-    augmentation made, and which samplers the loop used."""
+    the first step of the run left out), each step's loss_ae, which
+    random draws the augmentation made, and which samplers the loop
+    used."""
     import torch
 
     from superresolution_aniso_mri_tpu_torch.cli import train_loop
     from superresolution_aniso_mri_tpu_torch.data import transforms
     from superresolution_aniso_mri_tpu_torch.train import trainer as trainer_mod
 
-    events, drawn, samplers = [], set(), []
+    events, drawn, samplers, step_loss = [], set(), [], []
     train, draw = trainer_mod.Trainer.train, transforms.draw_augment_params
     cache = train_loop.maybe_device_cache
 
@@ -767,7 +791,9 @@ def _train_timed(fn, argv, exper: str) -> dict:
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         events.append((self.epoch, ev))
-        return train(self, batch)
+        metrics = train(self, batch)
+        step_loss.append(metrics["loss_ae"])
+        return metrics
 
     def recorded_draw(*a, **kw):
         params = draw(*a, **kw)
@@ -806,7 +832,8 @@ def _train_timed(fn, argv, exper: str) -> dict:
             "ms_per_step": float(np.median(gaps)),
             "ms_per_step_min": float(np.min(gaps)),
             "drawn": sorted(drawn), "samplers": samplers,
-            "loss_ae": loss.tolist(), "trainer": trainer}
+            "loss_ae": loss.tolist(), "trainer": trainer,
+            "step_loss_ae": torch.stack(step_loss).cpu().tolist()}
 
 
 def augment_timings(dev, gen_seed: int, card: str) -> dict:
@@ -862,11 +889,11 @@ def augment_timings(dev, gen_seed: int, card: str) -> dict:
 
 
 def profile_disk_steps(trainer, dev, path: str, steps: int = 10) -> None:
-    """Trace ``steps`` steps of the OASIS recipe as ``run_training`` runs
-    them (device slice cache, the random recipe, each batch made on the
-    training thread), after 5 untraced ones: device ms a step by kernel
-    kind and the idle share of the traced wall. The table goes to
-    ``path + ".disk.txt"``."""
+    """Trace ``steps`` steps of ``trainer``'s recipe as ``run_training``
+    runs them (device slice cache, the random recipe, each batch made on
+    the training thread), after 5 untraced ones: device ms a step by
+    kernel kind and the idle share of the traced wall. The table goes to
+    ``path``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -909,28 +936,22 @@ def profile_disk_steps(trainer, dev, path: str, steps: int = 10) -> None:
     busy = sum(kinds.values())
     table = events.table(sort_by=attr, row_limit=40)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with open(path + ".disk.txt", "w") as f:
+    with open(path, "w") as f:
         f.write(table)
-    log("profile disk train step: device ms a step by kernel kind "
+    log(f"profile {os.path.basename(path)}: device ms a train step by "
+        f"kernel kind "
         + json.dumps({k: round(v, 4) for k, v in sorted(kinds.items())})
         + f"; busy {busy:.4f} ms of a traced {wall_ms:.4f} ms step, idle "
         f"share {1 - busy / wall_ms:.3f}")
 
 
-def check_disk_recipes(seed: int, card: str, dev, profile_path=None) -> dict:
-    """Phase 8 (see the module docstring): the README's production
-    recipes from on-disk trees on the card; returns the SSIM launches of
-    find-best and the phase's timings."""
+@contextlib.contextmanager
+def disk_trees(seed: int):
+    """Phase 8's dataset trees in a temp dir, with ``$SR_DATA_ROOT``
+    pointing at them while the block runs; yields (the temp dir, the
+    seconds it took to write them). Phases 8 and 9 train from them."""
     import tempfile
 
-    import torch
-
-    from superresolution_aniso_mri_tpu_torch.cli import entry
-    from superresolution_aniso_mri_tpu_torch.data import device_cache
-    from superresolution_aniso_mri_tpu_torch.ops import cuda_kernels
-    from superresolution_aniso_mri_tpu_torch.ops.metrics import ssim_volume
-
-    out: dict = {}
     old_root = os.environ.get("SR_DATA_ROOT")
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "data")
@@ -938,123 +959,394 @@ def check_disk_recipes(seed: int, card: str, dev, profile_path=None) -> dict:
         try:
             t0 = time.perf_counter()
             ids = make_disk_trees(root, seed)
-            out["fabricate_s"] = time.perf_counter() - t0
+            fabricate_s = time.perf_counter() - t0
             log(f"disk: OASIS {len(ids['oasis'])} x {OASIS_SHAPE}, ACDC "
                 f"{len(ids['acdc'])} x {ACDC_SHAPE} written in "
-                f"{out['fabricate_s']:.1f} s")
-
-            # the auto cache budget on this card, against the README
-            # OASIS recipe's 200 training patients
-            budget = device_cache.auto_budget_bytes(dev)
-            recipe = 200 * OASIS_SHAPE[0] * 220 * 220 * 4
-            out["cache_auto_budget_mb"] = budget / 2 ** 20
-            log(f"disk: auto cache budget {budget / 2**20:.0f} MB; the "
-                f"README OASIS recipe's 200 training patients need "
-                f"{recipe / 2**20:.0f} MB → cache "
-                f"{'on' if recipe <= budget else 'off'}")
-            if recipe > budget:
-                raise AssertionError("the auto budget leaves the README "
-                                     "OASIS recipe uncached on this card")
-
-            # 1. train-brain -d OASIS (train_brain_aesr.py:8-10, MSE)
-            # with the device slice cache and without it, each twice
-            for name, mode in (("cache", "auto"), ("nocache", "0"),
-                               ("nocache2", "0"), ("cache2", "auto")):
-                exper = os.path.join(tmp, f"oasis_{name}")
-                res = _train_timed(entry.train_brain, OASIS_ARGV + [
-                    "-o", tmp, "-id", f"oasis_{name}",
-                    "--device_data_cache", mode], exper)
-                want = ("DeviceCachedSampler" if mode == "auto"
-                        else "TripletSampler")
-                log(f"disk train-brain OASIS ({name}): "
-                    + json.dumps({k: v for k, v in res.items()
-                                  if k != "trainer"}))
-                if res["samplers"] != [want, want]:
-                    raise AssertionError(f"samplers {res['samplers']}, "
-                                         f"expected {want}")
-                if not {"crop_top", "rot90_k", "gain"} <= set(res["drawn"]):
-                    raise AssertionError(f"random recipe not drawn: "
-                                         f"{res['drawn']}")
-                for k in ("s_per_epoch", "ms_per_step", "ms_per_step_min",
-                          "cli_s", "steps"):
-                    out[f"oasis_{name}_{k}"] = res[k]
-                if profile_path and name == "cache":
-                    profile_disk_steps(res["trainer"], dev, profile_path)
-            exper = os.path.join(tmp, "oasis_cache")
-
-            # 2. find-best-model on the validation patient, SSIM counted;
-            # the pairs it scores are kept for the check below
-            scored, kernel = [], cuda_kernels.ssim_volume_cuda
-
-            def kept_kernel(ref, dist, data_range=1.0, win_size=7):
-                got = kernel(ref, dist, data_range, win_size)
-                scored.append((ref.clone(), dist.clone(), data_range,
-                               win_size, got.clone()))
-                return got
-
-            cuda_kernels.ssim_volume_cuda = kept_kernel
-            try:
-                cuda_kernels.reset_launch_counts()
-                t0 = time.perf_counter()
-                best = entry.find_best_model(["--exper_dir", exper])
-                torch.cuda.synchronize()
-                out["find_best_s_per_checkpoint"] = (
-                    (time.perf_counter() - t0) / len(best["epochs"]))
-                out["find_best_launches"] = \
-                    cuda_kernels.LAUNCHES["ssim_slice"]
-            finally:
-                cuda_kernels.ssim_volume_cuda = kernel
-            # the kernel against the plain version on those exact pairs
-            if len(scored) != out["find_best_launches"]:
-                raise AssertionError(f"{len(scored)} pairs kept for "
-                                     f"{out['find_best_launches']} launches")
-            out["find_best_kernel_err"] = 0.0
-            for ref, dist, data_range, win, got in scored:
-                want = ssim_volume(ref, dist, data_range, win)
-                again = kernel(ref, dist, data_range, win)
-                err = float((got - want).abs().max())
-                out["find_best_kernel_err"] = max(
-                    out["find_best_kernel_err"], err)
-                log(f"kernel ssim_slice {tuple(ref.shape)} win={win} "
-                    f"(OASIS find-best): max_abs_err={err:.3e}")
-                if not err <= KERNEL_ATOL or not torch.equal(got, again):
-                    raise AssertionError(
-                        f"SSIM kernel disagrees with the plain version on "
-                        f"find-best's pair {tuple(ref.shape)}: {err:.3e}")
-            log(f"disk find-best OASIS: epochs {best['epochs']}, SSIM "
-                f"{best['history']['ssim']}, launches "
-                f"{out['find_best_launches']} (expected "
-                f"{len(best['epochs'])}), "
-                f"{out['find_best_s_per_checkpoint']:.3f} s/checkpoint")
-            if best["epochs"] != [0, 1] or out["find_best_launches"] != 2 \
-                    or not np.isfinite(best["history"]["ssim"]).all():
-                raise AssertionError("find-best-model did not score both "
-                                     "checkpoints through the SSIM kernel")
-
-            # 3. train-cardiac -d ACDC, lanczos3 (README cardiac row, MSE)
-            exper = os.path.join(tmp, "acdc")
-            t0 = time.time()
-            trainer = entry.train_cardiac(ACDC_ARGV + ["-o", tmp, "-id",
-                                                       "acdc"])
-            out["acdc_cli_s"] = time.time() - t0
-            out["acdc_steps"] = trainer.iters - 1
-            loss = np.load(os.path.join(exper, "losses_train.npz"))
-            models = sorted(os.listdir(os.path.join(exper, "models")))
-            log(f"disk train-cardiac ACDC lanczos3: {out['acdc_steps']} "
-                f"steps, loss_ae {loss['loss_ae'].tolist()}, models "
-                f"{models}, {out['acdc_cli_s']:.1f} s")
-            if models != ["last.models"] or not np.isfinite(
-                    loss["loss_ae"]).all() or out["acdc_steps"] < 1:
-                raise AssertionError("train-cardiac ACDC did not train")
+                f"{fabricate_s:.1f} s")
+            yield tmp, fabricate_s
         finally:
             if old_root is None:
                 os.environ.pop("SR_DATA_ROOT", None)
             else:
                 os.environ["SR_DATA_ROOT"] = old_root
 
+
+def _kept_ssim_pairs():
+    """Stand in for the SSIM kernel's wrapper with one that keeps every
+    pair it scores (and its result); returns (the list, a function that
+    puts the wrapper back)."""
+    from superresolution_aniso_mri_tpu_torch.ops import cuda_kernels
+
+    scored, kernel = [], cuda_kernels.ssim_volume_cuda
+
+    def kept_kernel(ref, dist, data_range=1.0, win_size=7):
+        got = kernel(ref, dist, data_range, win_size)
+        scored.append((ref.clone(), dist.clone(), data_range, win_size,
+                       got.clone()))
+        return got
+
+    cuda_kernels.ssim_volume_cuda = kept_kernel
+
+    def restore():
+        cuda_kernels.ssim_volume_cuda = kernel
+
+    return scored, restore
+
+
+def check_kept_pairs(scored, what: str) -> float:
+    """Hold the SSIM kernel against the plain version (and itself) on
+    the pairs a path scored; returns the largest error."""
+    import torch
+
+    from superresolution_aniso_mri_tpu_torch.ops import cuda_kernels
+    from superresolution_aniso_mri_tpu_torch.ops.metrics import ssim_volume
+
+    worst = 0.0
+    for ref, dist, data_range, win, got in scored:
+        want = ssim_volume(ref, dist, data_range, win)
+        again = cuda_kernels.ssim_volume_cuda(ref, dist, data_range, win)
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        log(f"kernel ssim_slice {tuple(ref.shape)} win={win} ({what}): "
+            f"max_abs_err={err:.3e}")
+        if not err <= KERNEL_ATOL or not torch.equal(got, again):
+            raise AssertionError(
+                f"SSIM kernel disagrees with the plain version on {what}'s "
+                f"pair {tuple(ref.shape)}: {err:.3e}")
+    return worst
+
+
+def check_disk_recipes(tmp: str, seed: int, card: str, dev,
+                       profile_path=None) -> dict:
+    """Phase 8 (see the module docstring): the README's production
+    recipes from the on-disk trees in ``tmp`` on the card; returns the
+    SSIM launches of find-best and the phase's timings."""
+    import torch
+
+    from superresolution_aniso_mri_tpu_torch.cli import entry
+    from superresolution_aniso_mri_tpu_torch.data import device_cache
+    from superresolution_aniso_mri_tpu_torch.ops import cuda_kernels
+
+    out: dict = {}
+    # the auto cache budget on this card, against the README
+    # OASIS recipe's 200 training patients
+    budget = device_cache.auto_budget_bytes(dev)
+    recipe = 200 * OASIS_SHAPE[0] * 220 * 220 * 4
+    out["cache_auto_budget_mb"] = budget / 2 ** 20
+    log(f"disk: auto cache budget {budget / 2**20:.0f} MB; the "
+        f"README OASIS recipe's 200 training patients need "
+        f"{recipe / 2**20:.0f} MB → cache "
+        f"{'on' if recipe <= budget else 'off'}")
+    if recipe > budget:
+        raise AssertionError("the auto budget leaves the README "
+                             "OASIS recipe uncached on this card")
+
+    # 1. train-brain -d OASIS (train_brain_aesr.py:8-10, MSE)
+    # with the device slice cache and without it, each twice
+    for name, mode in (("cache", "auto"), ("nocache", "0"),
+                       ("nocache2", "0"), ("cache2", "auto")):
+        exper = os.path.join(tmp, f"oasis_{name}")
+        res = _train_timed(entry.train_brain, OASIS_ARGV + [
+            "-o", tmp, "-id", f"oasis_{name}",
+            "--device_data_cache", mode], exper)
+        want = ("DeviceCachedSampler" if mode == "auto"
+                else "TripletSampler")
+        log(f"disk train-brain OASIS ({name}): "
+            + json.dumps({k: v for k, v in res.items()
+                          if k not in ("trainer", "step_loss_ae")}))
+        if res["samplers"] != [want, want]:
+            raise AssertionError(f"samplers {res['samplers']}, "
+                                 f"expected {want}")
+        if not {"crop_top", "rot90_k", "gain"} <= set(res["drawn"]):
+            raise AssertionError(f"random recipe not drawn: "
+                                 f"{res['drawn']}")
+        for k in ("s_per_epoch", "ms_per_step", "ms_per_step_min",
+                  "cli_s", "steps"):
+            out[f"oasis_{name}_{k}"] = res[k]
+        if profile_path and name == "cache":
+            profile_disk_steps(res["trainer"], dev,
+                               profile_path + ".disk.txt")
+    exper = os.path.join(tmp, "oasis_cache")
+
+    # 2. find-best-model on the validation patient, SSIM counted;
+    # the pairs it scores are kept for the check below
+    scored, restore = _kept_ssim_pairs()
+    try:
+        cuda_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        best = entry.find_best_model(["--exper_dir", exper])
+        torch.cuda.synchronize()
+        out["find_best_s_per_checkpoint"] = (
+            (time.perf_counter() - t0) / len(best["epochs"]))
+        out["find_best_launches"] = \
+            cuda_kernels.LAUNCHES["ssim_slice"]
+    finally:
+        restore()
+    # the kernel against the plain version on those exact pairs
+    if len(scored) != out["find_best_launches"]:
+        raise AssertionError(f"{len(scored)} pairs kept for "
+                             f"{out['find_best_launches']} launches")
+    out["find_best_kernel_err"] = check_kept_pairs(
+        scored, "OASIS find-best")
+    log(f"disk find-best OASIS: epochs {best['epochs']}, SSIM "
+        f"{best['history']['ssim']}, launches "
+        f"{out['find_best_launches']} (expected "
+        f"{len(best['epochs'])}), "
+        f"{out['find_best_s_per_checkpoint']:.3f} s/checkpoint")
+    if best["epochs"] != [0, 1] or out["find_best_launches"] != 2 \
+            or not np.isfinite(best["history"]["ssim"]).all():
+        raise AssertionError("find-best-model did not score both "
+                             "checkpoints through the SSIM kernel")
+
+    # 3. train-cardiac -d ACDC, lanczos3 (README cardiac row, MSE)
+    exper = os.path.join(tmp, "acdc")
+    t0 = time.time()
+    trainer = entry.train_cardiac(ACDC_ARGV + ["-o", tmp, "-id",
+                                               "acdc"])
+    out["acdc_cli_s"] = time.time() - t0
+    out["acdc_steps"] = trainer.iters - 1
+    loss = np.load(os.path.join(exper, "losses_train.npz"))
+    models = sorted(os.listdir(os.path.join(exper, "models")))
+    log(f"disk train-cardiac ACDC lanczos3: {out['acdc_steps']} "
+        f"steps, loss_ae {loss['loss_ae'].tolist()}, models "
+        f"{models}, {out['acdc_cli_s']:.1f} s")
+    if models != ["last.models"] or not np.isfinite(
+            loss["loss_ae"]).all() or out["acdc_steps"] < 1:
+        raise AssertionError("train-cardiac ACDC did not train")
+
     # 4. the augmentation alone, and card against CPU
     out.update(augment_timings(dev, seed, card))
     log(f"disk timings [{card}]: " + json.dumps(out))
+    return out
+
+
+def _without_mix_loss(argv: list) -> list:
+    """``argv`` without its ``--image_mix_loss_func`` pair, so the
+    combined model trains its default (perceptual) mix loss."""
+    i = argv.index("--image_mix_loss_func")
+    return argv[:i] + argv[i + 2:]
+
+
+def _with_epochs(argv: list, epochs: int) -> list:
+    i = argv.index("-e")
+    return argv[:i + 1] + [str(epochs)] + argv[i + 2:]
+
+
+def lpips_bound(shape) -> tuple:
+    """(bound_ms, bound_by) of per-slice LPIPS of an [S, H, W] pair: the
+    float32 operations of the two VGG16 stacks (2 per multiply-add of
+    each 3x3 conv) at the float32 peak, against the pair read once and
+    [S] written once at the memory rate. No hand-written kernel runs
+    here: cuDNN float32 convolutions with TF32 off."""
+    from superresolution_aniso_mri_tpu_torch.ops.lpips import _VGG_PLAN
+
+    s, h, w = shape
+    ops, cin = 0, 3
+    for cout, pool_before in _VGG_PLAN:
+        if pool_before:
+            h, w = h // 2, w // 2
+        ops += 2 * 9 * cin * cout * h * w
+        cin = cout
+    t_ops = 2 * s * ops / F32_FLOPS_PER_S * 1e3
+    t_bytes = (2 * s * shape[1] * shape[2] * 4 + s * 4) / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def check_perceptual(tmp: str, seed: int, card: str, dev, mse_ms: float,
+                     profile_path=None) -> dict:
+    """Phase 9 (see the module docstring): the perceptual and SSIM
+    training losses, LPIPS scoring and the conventional baselines on the
+    card, from phase 8's trees in ``tmp``; returns the SSIM launches of
+    its scoring paths and the phase's numbers."""
+    import warnings
+
+    import torch
+
+    from superresolution_aniso_mri_tpu_torch.cli import entry
+    from superresolution_aniso_mri_tpu_torch.config import load_settings
+    from superresolution_aniso_mri_tpu_torch.data.datasets import (
+        get_datasets)
+    from superresolution_aniso_mri_tpu_torch.evaluate import (
+        FILTER_BENCH, create_hr_images)
+    from superresolution_aniso_mri_tpu_torch.evaluate.metrics_driver import (
+        LPIPS_CHUNK_BYTES, lpips_volume)
+    from superresolution_aniso_mri_tpu_torch.models import (AEConfig,
+                                                            VanillaACAI)
+    from superresolution_aniso_mri_tpu_torch.ops import (cuda_kernels,
+                                                         get_lpips_params)
+    from superresolution_aniso_mri_tpu_torch.train import (
+        LossConfig, create_train_state, get_trainer, make_train_step)
+
+    out: dict = {}
+    # 1. train-brain -d OASIS with the recipe's flags but the mix loss:
+    # the ae_combined default, perceptual (VGG LPIPS)
+    percept_argv = _without_mix_loss(OASIS_ARGV)
+    exper = os.path.join(tmp, "oasis_percept")
+    res = _train_timed(entry.train_brain, percept_argv + [
+        "-o", tmp, "-id", "oasis_percept"], exper)
+    settings = load_settings(os.path.join(exper, "settings.yaml"))
+    log("percept train-brain OASIS (perceptual default): " + json.dumps(
+        {k: v for k, v in res.items() if k not in ("trainer",
+                                                   "step_loss_ae")})
+        + f"; mix loss "
+        f"{settings['image_mix_loss_func']}, lpips_mode "
+        f"{settings.get('lpips_mode')}")
+    if settings["image_mix_loss_func"] != "perceptual" \
+            or settings.get("lpips_mode") != "lin_converted_vgg_random":
+        raise AssertionError("the default OASIS run did not train the "
+                             "perceptual mix loss with the shipped lins")
+    first, last = (float(np.mean(res["step_loss_ae"][sl]))
+                   for sl in (slice(0, 5), slice(-5, None)))
+    log(f"percept: loss_ae, mean of the first 5 steps {first:.6f} → of the "
+        f"last 5 {last:.6f}; by epoch {res['loss_ae']}")
+    if not last < first:
+        raise AssertionError(f"perceptual training did not lower loss_ae: "
+                             f"{first} → {last}")
+    for k in ("ms_per_step", "ms_per_step_min", "s_per_epoch", "cli_s",
+              "steps"):
+        out[f"oasis_percept_{k}"] = res[k]
+    out["oasis_mse_ms_per_step"] = mse_ms
+    log(f"percept: OASIS ms/step perceptual {res['ms_per_step']:.3f} vs MSE "
+        f"{mse_ms:.3f} (phase 8, same call) [{card}]")
+    if profile_path:
+        profile_disk_steps(res["trainer"], dev,
+                           profile_path + ".percept.txt")
+
+    # 2. one epoch each of the other losses and of bf16 cardiac
+    runs = {
+        "oasis_percept_enc": (entry.train_brain, _with_epochs(
+            percept_argv, 1) + ["--image_mix_loss_func", "perceptual_enc"],
+            "encoder_backbone"),
+        "oasis_ssim": (entry.train_brain, _with_epochs(OASIS_ARGV, 1)
+                       + ["--use_ssim_loss"], None),
+        "acdc_percept_bf16": (entry.train_cardiac, _without_mix_loss(
+            ACDC_ARGV) + ["--compute_dtype", "bfloat16"],
+            "lin_converted_vgg_random"),
+    }
+    for name, (fn, argv, mode) in runs.items():
+        exper = os.path.join(tmp, name)
+        r = _train_timed(fn, argv + ["-o", tmp, "-id", name], exper)
+        kept = load_settings(os.path.join(exper, "settings.yaml"))
+        log(f"percept {name}: " + json.dumps(
+            {k: v for k, v in r.items() if k not in ("trainer",
+                                                     "step_loss_ae")})
+            + f"; lpips_mode {kept.get('lpips_mode')} [{card}]")
+        if kept.get("lpips_mode") != mode or r["steps"] < 1:
+            raise AssertionError(f"{name}: lpips_mode "
+                                 f"{kept.get('lpips_mode')}, expected {mode}")
+        out[f"{name}_ms_per_step"] = r["ms_per_step"]
+        out[f"{name}_cli_s"] = r["cli_s"]
+
+    # 3. card against CPU: 3 small-config perceptual steps
+    small = AEConfig(**SMALL_CFG)
+    loss_cfg = LossConfig(model="ae_combined",
+                          image_mix_loss_func="perceptual")
+    _, small_batches, _ = train_data(seed + 2, SMALL_CFG["width"], 4, 3, dev)
+    lr = 1e-5
+    states, steps = [], []
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for d in (dev, torch.device("cpu")):
+            model = VanillaACAI(small)
+            model.reset_parameters(torch.Generator().manual_seed(seed + 2))
+            states.append(create_train_state(model.to(d), lr))
+            steps.append(make_train_step(loss_cfg, get_lpips_params(
+                device=d)))
+    worst = 0.0
+    for sb in small_batches:
+        _, cm = steps[0](states[0], sb, 0.3)
+        _, hm = steps[1](states[1], {k: v.cpu() for k, v in sb.items()}, 0.3)
+        for k in hm:
+            worst = max(worst, abs(float(cm[k]) - float(hm[k]))
+                        / max(abs(float(hm[k])), 1e-12))
+    drift = max(float((p.detach().cpu() - q.detach()).abs().max())
+                for p, q in zip(states[0].model.parameters(),
+                                states[1].model.parameters()))
+    bound = 2 * lr * len(small_batches)
+    out["percept_card_vs_cpu_rel"] = worst
+    log(f"percept: card vs CPU, {len(small_batches)} perceptual steps of "
+        f"{SMALL_CFG}: max rel loss diff {worst:.3e} (limit 1e-4), max "
+        f"param diff {drift:.3e} (limit 2·lr·steps = {bound:.1e})")
+    if not worst <= 1e-4 or not drift <= bound:
+        raise AssertionError("card and CPU perceptual training differ")
+
+    # 4. LPIPS scoring of the perceptual run's checkpoint over the
+    # validation volume, SSIM launches counted and held against the
+    # plain version on the pairs scored
+    trainer = get_trainer(os.path.join(tmp, "oasis_percept"), "caisr")
+    val = get_datasets(trainer.args)[1][:1]
+    scored, restore = _kept_ssim_pairs()
+    try:
+        cuda_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        model_res = create_hr_images(trainer, val, OASIS_DS,
+                                     compute_percept_metrics=True)
+        torch.cuda.synchronize()
+        out["percept_create_hr_images_s"] = time.perf_counter() - t0
+        out["percept_create_hr_images_launches"] = \
+            cuda_kernels.LAUNCHES["ssim_slice"]
+        rows = {"model": {k: model_res["aggregate"][k][0]
+                          for k in ("ssim", "psnr", "vif", "lpips")}}
+        rows["model"]["s_per_volume"] = out["percept_create_hr_images_s"]
+        # 5. the conventional baselines on the same volume
+        for method in FILTER_BENCH:
+            cuda_kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            base = create_hr_images(None, val, OASIS_DS,
+                                    interpol_method=method, device=dev)
+            torch.cuda.synchronize()
+            rows[method] = {k: base["aggregate"][k][0]
+                            for k in ("ssim", "psnr", "vif")}
+            rows[method]["s_per_volume"] = time.perf_counter() - t0
+            rows[method]["launches"] = cuda_kernels.LAUNCHES["ssim_slice"]
+    finally:
+        restore()
+    out["percept_kernel_err"] = check_kept_pairs(scored, "phase 9 scoring")
+    for name, row in rows.items():
+        log(f"percept score {name:8s} [{card}]: " + json.dumps(row))
+    out["baselines"] = rows
+    if model_res.get("lpips_mode") != "lin_converted_vgg_random" \
+            or out["percept_create_hr_images_launches"] != 1 \
+            or any(rows[m]["launches"] != 1 for m in FILTER_BENCH) \
+            or not all(np.isfinite(v) for row in rows.values()
+                       for v in row.values()):
+        raise AssertionError(f"phase 9 scoring: {rows}, "
+                             f"lpips_mode {model_res.get('lpips_mode')}")
+
+    # 6. LPIPS of a full [175, 220, 220] pair: CUDA events, peak memory;
+    # card against CPU on 4 slices
+    a = torch.from_numpy(phantom(seed + 40)).to(dev)
+    b = (a + 0.05 * torch.rand(a.shape, device=dev,
+                               generator=torch.Generator(device=dev)
+                               .manual_seed(seed))).clamp(0, 1)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        params = get_lpips_params(device=dev)
+        cpu_params = get_lpips_params(device="cpu")
+    lpips_volume(params, b, a)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    ms = cuda_ms(lambda: lpips_volume(params, b, a), 3)
+    out["lpips_volume_ms"] = ms
+    out["lpips_volume_peak_gib"] = (torch.cuda.max_memory_allocated()
+                                    - base_mem) / 2 ** 30
+    out["lpips_volume_bound_ms"], out["lpips_volume_bound_by"] = \
+        lpips_bound(tuple(a.shape))
+    out["lpips_chunk_bytes"] = LPIPS_CHUNK_BYTES
+    got = lpips_volume(params, b[:4], a[:4]).cpu()
+    want = lpips_volume(cpu_params, b[:4].cpu(), a[:4].cpu())
+    out["lpips_card_vs_cpu_rel"] = float((got - want).abs().max()
+                                         / want.abs().max())
+    log(f"percept LPIPS {tuple(a.shape)} [{card}]: {ms:.2f} ms, peak "
+        f"{out['lpips_volume_peak_gib']:.2f} GiB over the inputs, bound "
+        f"{out['lpips_volume_bound_ms']:.2f} ms "
+        f"({out['lpips_volume_bound_by']}); card vs CPU on 4 slices rel "
+        f"{out['lpips_card_vs_cpu_rel']:.3e} (limit {LPIPS_CARD_RTOL})")
+    if not out["lpips_card_vs_cpu_rel"] <= LPIPS_CARD_RTOL:
+        raise AssertionError("LPIPS on the card differs from the CPU")
+    log(f"percept timings [{card}]: " + json.dumps(
+        {k: v for k, v in out.items() if k != "baselines"}))
     return out
 
 
@@ -1299,7 +1591,13 @@ def main() -> int:
     cli = check_cli(args.seed, card)
 
     # ---- 8. production recipes from disk -----------------------------
-    disk = check_disk_recipes(args.seed, card, dev, args.profile)
+    # ---- 9. perceptual and SSIM losses, LPIPS, baselines --------------
+    with disk_trees(args.seed) as (tmp, fabricate_s):
+        disk = check_disk_recipes(tmp, args.seed, card, dev, args.profile)
+        disk["fabricate_s"] = fabricate_s
+        percept = check_perceptual(tmp, args.seed, card, dev,
+                                   disk["oasis_cache_ms_per_step"],
+                                   args.profile)
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)  # name and power limit, as nvidia-smi prints them
@@ -1313,9 +1611,15 @@ def main() -> int:
             "train_serve_score": train["launches"]["ssim_slice"],
             "cli_find_best": cli["find_best_plain_launches"],
             "cli_find_best_batched": cli["find_best_batched_launches"],
-            "cli_oasis_find_best": disk["find_best_launches"]},
+            "cli_oasis_find_best": disk["find_best_launches"],
+            "percept_create_hr_images":
+                percept["percept_create_hr_images_launches"],
+            "baselines_create_hr_images": sum(
+                row["launches"] for name, row in percept["baselines"].items()
+                if name != "model")},
         "max_abs_err": max(kcheck["max_abs_err"],
-                           disk["find_best_kernel_err"]), "ok": True,
+                           disk["find_best_kernel_err"],
+                           percept["percept_kernel_err"]), "ok": True,
         "ms": kernel_ms, "ms_cold": kernel_cold_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "bound_share": bound_ms / kernel_ms,

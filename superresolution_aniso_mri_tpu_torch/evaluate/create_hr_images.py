@@ -2,11 +2,11 @@
 
 Port of ``superresolution_aniso_mri_tpu/evaluate/create_hr_images.py``
 (reference: evaluate/create_HR_images.py:239-424): loop over patient
-volumes, super-resolve with the model, compute SSIM/PSNR/VIF on all and
-on the synthesized slices (on the trainer's device; SSIM through the
-CUDA kernel on the card), save NIfTI volumes, aggregate mean ± std, dump
-the metrics as npz. The conventional baselines (``FILTER_BENCH``) are not
-ported (ROADMAP item 13), nor LPIPS scoring (S6).
+volumes, super-resolve with the model or a conventional interpolator
+(``FILTER_BENCH``, on the host), compute SSIM/PSNR/VIF (+ LPIPS with
+``compute_percept_metrics``) on all and on the synthesized slices (on
+the trainer's device; SSIM through the CUDA kernel on the card), save
+NIfTI volumes, aggregate mean ± std, dump the metrics as npz.
 """
 from __future__ import annotations
 
@@ -16,7 +16,9 @@ from typing import Dict, Iterable, List, Optional
 import numpy as np
 
 from ..data.volume import Volume, apply_2d_zoom_3d, apply_2d_zoom_4d
-from ..infer import create_super_volume
+from ..device import resolve_device
+from ..infer import create_simple_interpolation, create_super_volume
+from ..ops.lpips import get_lpips_params, lpips_weights_info
 from ..utils import write_image
 from .metrics_driver import (IdUniquifier, aggregate_metrics,
                              compute_volume_metrics)
@@ -121,21 +123,36 @@ def create_hr_images(trainer, volumes: Iterable[Volume],
                      original_spacing=None,
                      verbose: bool = False,
                      tta: Optional[str] = None,
-                     latent_interp: str = "linear") -> Dict:
-    """Evaluate SR quality over a dataset of HR volumes with the model
-    synthesis of ``trainer`` (a ``Trainer`` or ``ServingModel``; scores
-    on its device). Volumes whose ``image`` is 4D ([t, z, y, x]) are
+                     latent_interp: str = "linear",
+                     device=None) -> Dict:
+    """Evaluate SR quality over a dataset of HR volumes.
+
+    ``interpol_method``: 'model' → the latent-interpolation synthesis of
+    ``trainer`` (a ``Trainer`` or ``ServingModel``); any of
+    ``FILTER_BENCH`` → the conventional z-interpolation baseline on the
+    host, clipped to [0, 1] (``trainer`` may be None). Scores on the
+    trainer's device, else on ``device`` (None: the CUDA device).
+    ``compute_percept_metrics`` adds LPIPS with the trainer's
+    ``lpips_params``, else ``get_lpips_params()``, and records their
+    ``lpips_mode``. Volumes whose ``image`` is 4D ([t, z, y, x]) are
     super-resolved and scored frame by frame and saved as one 4D NIfTI.
-    Returns {'per_volume': {...}, 'aggregate': {...}}; see the JAX
-    package's ``create_hr_images`` for every option."""
-    if interpol_method != "model":
-        raise NotImplementedError(
-            f"interpol_method={interpol_method!r}: the conventional "
-            f"baselines {FILTER_BENCH} are not ported yet (ROADMAP item 13)")
+    Returns {'per_volume': {...}, 'aggregate': {...}[, 'lpips_mode']};
+    see the JAX package's ``create_hr_images`` for every option."""
+    dev = (trainer.device if getattr(trainer, "device", None) is not None
+           else resolve_device(device))
+    lpips_params = None
+    lpips_mode = None
     if compute_percept_metrics:
-        raise NotImplementedError(
-            "compute_percept_metrics: LPIPS scoring is not ported yet "
-            "(ROADMAP.md, S6)")
+        lpips_params = getattr(trainer, "lpips_params", None)
+        if lpips_params is not None:
+            # the trainer recorded its own weights' mode at resolution
+            lpips_mode = trainer.args.get("lpips_mode")
+        else:
+            # baselines and models trained without the perceptual loss
+            # still get the requested metric; the mode is captured at
+            # this resolution
+            lpips_params = get_lpips_params(device=dev)
+            lpips_mode = lpips_weights_info()["mode"]
     alpha_range = np.linspace(0, 1, downsample_steps + 1)[1:-1]
     per_volume: List[Dict] = []
     per_volume_ids = []
@@ -143,17 +160,26 @@ def create_hr_images(trainer, volumes: Iterable[Volume],
     # (patients with more frames weigh more, as in the reference);
     # per_volume keeps the per-patient mean for reporting
     agg_samples: List[Dict] = []
-    model_name = trainer.args.get("model", "model") \
-        if hasattr(trainer, "args") else "model"
+    if trainer is None:
+        model_name = interpol_method
+    else:
+        model_name = trainer.args.get("model", "model") \
+            if hasattr(trainer, "args") else "model"
+    conv = interpol_method != "model"
 
     def _synthesize(img3d, lbl3d=None):
-        result = create_super_volume(
-            trainer, img3d, alpha_range=alpha_range,
-            downsample_steps=downsample_steps,
-            generate_inbetween_slices=True,
-            use_original=use_original, labels=lbl3d, tta=tta,
-            latent_interp=latent_interp)
-        return result["upsampled_image"], result["upsampled_labels"]
+        if not conv:
+            result = create_super_volume(
+                trainer, img3d, alpha_range=alpha_range,
+                downsample_steps=downsample_steps,
+                generate_inbetween_slices=True,
+                use_original=use_original, labels=lbl3d, tta=tta,
+                latent_interp=latent_interp)
+            return result["upsampled_image"], result["upsampled_labels"]
+        # clip like the reference: cubic / lanczos taps ring outside [0, 1]
+        return np.clip(create_simple_interpolation(
+            img3d, downsample_steps, method=interpol_method,
+            generate_inbetween_slices=True), 0.0, 1.0), lbl3d
 
     # metrics stop at the last on-grid slice: the (S-1) % ds tail slices
     # are verbatim ground-truth copies and must not inflate the scores
@@ -164,7 +190,8 @@ def create_hr_images(trainer, volumes: Iterable[Volume],
         n = min(len(ref), len(up), _n_scored(len(up)))
         return compute_volume_metrics(
             ref[:n], up[:n], downsample_steps=downsample_steps,
-            eval_axis=eval_axis, device=trainer.device)
+            conv_interpol=conv, eval_axis=eval_axis,
+            lpips_params=lpips_params, device=dev)
 
     for vol in volumes:
         hr = vol.image_hr if vol.image_hr is not None else vol.image
@@ -207,7 +234,8 @@ def create_hr_images(trainer, volumes: Iterable[Volume],
             new_spacing = np.array(vol.spacing, np.float64).copy()
             orig_sp = (original_spacing if original_spacing is not None
                        else getattr(vol, "original_spacing", None))
-            suffix = f"{model_name}_{downsample_steps}x"
+            suffix = (f"{interpol_method}_{downsample_steps}x" if conv
+                      else f"{model_name}_{downsample_steps}x")
             lbl = up_lbl if up_lbl is not None else (
                 np.asarray(vol.labels)
                 if getattr(vol, "labels", None) is not None else None)
@@ -236,6 +264,8 @@ def create_hr_images(trainer, volumes: Iterable[Volume],
     uniq = IdUniquifier()
     uids = [uniq.take(pid) for pid in per_volume_ids]
     result = {"per_volume": dict(zip(uids, per_volume)), "aggregate": agg}
+    if lpips_params is not None and lpips_mode:
+        result["lpips_mode"] = lpips_mode
     if output_dir:
         save_metrics(output_dir, None, result, downsample_steps,
                      interpol_method, eval_axis)

@@ -2,7 +2,11 @@
 
 Port of ``superresolution_aniso_mri_tpu/evaluate/metrics_driver.py``:
 one batched call per metric per volume on the device; SSIM goes through
-``ssim_volume_fused`` (the CUDA kernel on the card).
+``ssim_volume_fused`` (the CUDA kernel on the card). LPIPS (with
+``lpips_params``) runs the VGG stack over chunks of slices whose
+feature maps fit ``LPIPS_CHUNK_BYTES``: each slice's distance is
+independent, and the JAX package's one call over a whole 175 × 220²
+pair would hold ~17 GB of features.
 """
 from __future__ import annotations
 
@@ -13,7 +17,34 @@ import torch
 
 from ..device import resolve_device
 from ..ops.cuda_kernels import ssim_volume_fused
+from ..ops.lpips import _VGG_PLAN, lpips_distance
 from ..ops.metrics import masked_mean, psnr_volume, synth_slice_mask, vif_volume
+
+# device bytes of VGG feature maps that one LPIPS chunk may take
+LPIPS_CHUNK_BYTES = 4 << 30
+
+
+def _lpips_slice_bytes(h: int, w: int) -> int:
+    """float32 bytes of every VGG conv output of one pair of [h, w]
+    slices: an upper bound of what a slice holds at once."""
+    total = 0
+    for cout, pool_before in _VGG_PLAN:
+        if pool_before:
+            h, w = h // 2, w // 2
+        total += cout * max(h, 1) * max(w, 1)
+    return 2 * 4 * total
+
+
+def lpips_volume(lpips_params, up: torch.Tensor,
+                 ref: torch.Tensor) -> torch.Tensor:
+    """Per-slice LPIPS of [S, H, W] volumes in [0, 1] → [S], in chunks of
+    slices under ``LPIPS_CHUNK_BYTES``."""
+    n = max(1, LPIPS_CHUNK_BYTES // _lpips_slice_bytes(up.shape[1],
+                                                       up.shape[2]))
+    return torch.cat([
+        lpips_distance(lpips_params, up[i:i + n, None], ref[i:i + n, None],
+                       normalize=True)
+        for i in range(0, up.shape[0], n)])
 
 
 def compute_volume_metrics(reference: np.ndarray, upsampled: np.ndarray,
@@ -23,15 +54,12 @@ def compute_volume_metrics(reference: np.ndarray, upsampled: np.ndarray,
                            lpips_params=None,
                            data_range: float = 1.0,
                            device=None) -> Dict[str, float]:
-    """SSIM/PSNR/VIF/MSE over a [S, H, W] volume pair on ``device``
-    (None: the CUDA device). '<metric>' averages all slices,
-    '<metric>_synth' only the synthesized ones; for ``eval_axis != 0``
-    the volume is re-sliced along that axis, all-black slices are
-    skipped and '_synth' equals the all-slice value."""
-    if lpips_params is not None:
-        raise NotImplementedError(
-            "LPIPS scoring is not ported to the PyTorch package yet "
-            "(ROADMAP.md, S6)")
+    """SSIM/PSNR/VIF/MSE (+ LPIPS with ``lpips_params``, on their
+    device) over a [S, H, W] volume pair on ``device`` (None: the CUDA
+    device). '<metric>' averages all slices, '<metric>_synth' only the
+    synthesized ones; for ``eval_axis != 0`` the volume is re-sliced
+    along that axis, all-black slices are skipped and '_synth' equals
+    the all-slice value."""
     dev = resolve_device(device)
     ref = np.asarray(reference, np.float32)
     up = np.asarray(upsampled, np.float32)
@@ -76,16 +104,22 @@ def compute_volume_metrics(reference: np.ndarray, upsampled: np.ndarray,
     d = ref_t - up_t
     mse_s = (d * d).mean(dim=(1, 2))
 
-    stats = torch.stack([
-        masked_mean(ssim_s, all_mask), masked_mean(psnr_s, all_mask),
-        masked_mean(vif_s, all_mask), masked_mean(ssim_s, synth),
-        masked_mean(psnr_s, synth), masked_mean(vif_s, synth),
-    ]).cpu().numpy()
+    means = [masked_mean(ssim_s, all_mask), masked_mean(psnr_s, all_mask),
+             masked_mean(vif_s, all_mask), masked_mean(ssim_s, synth),
+             masked_mean(psnr_s, synth), masked_mean(vif_s, synth)]
+    if lpips_params is not None:
+        # LPIPS expects [0, 1] inputs: scale other data ranges down first
+        sc = 1.0 / data_range if data_range != 1.0 else 1.0
+        d = lpips_volume(lpips_params, up_t * sc, ref_t * sc)
+        means += [masked_mean(d, all_mask), masked_mean(d, synth)]
+    stats = torch.stack(means).cpu().numpy()
     mse_host = mse_s.cpu().numpy()
     out = dict(zip(("ssim", "psnr", "vif", "ssim_synth", "psnr_synth",
                     "vif_synth"), (float(v) for v in stats)))
     out["mse"] = (float(np.mean(mse_host[all_mask])) if all_mask.any()
                   else float("nan"))
+    if lpips_params is not None:
+        out["lpips"], out["lpips_synth"] = float(stats[6]), float(stats[7])
     return out
 
 

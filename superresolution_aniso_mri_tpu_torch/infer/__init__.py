@@ -1,11 +1,16 @@
-"""Volume synthesis (serving) of the port."""
+"""Volume synthesis (serving) of the port, and the conventional
+interpolation baselines."""
 from .latent_taps import resolve_latent_interp
 from .serving import ServingModel
-from .super_volume import (create_super_volume, create_super_volumes,
+from .super_volume import (apply_blur_filter, create_simple_interpolation,
+                           create_super_volume, create_super_volumes,
                            interleave_volume, make_batched_synthesizer,
-                           make_synthesis_core, make_volume_synthesizer)
+                           make_synthesis_core, make_volume_synthesizer,
+                           rescale_volume, simple_interpolation)
 
-__all__ = ["ServingModel", "create_super_volume", "create_super_volumes",
-           "resolve_latent_interp",
+__all__ = ["ServingModel", "apply_blur_filter",
+           "create_simple_interpolation", "create_super_volume",
+           "create_super_volumes", "resolve_latent_interp",
            "interleave_volume", "make_batched_synthesizer",
-           "make_synthesis_core", "make_volume_synthesizer"]
+           "make_synthesis_core", "make_volume_synthesizer",
+           "rescale_volume", "simple_interpolation"]

@@ -11,6 +11,11 @@ Slice order, tail-slice semantics, padding and the latent mixing rules
 public functions take and return the reference's numpy shapes
 (``[S, H, W]`` in, ``[S', H, W]`` out).
 
+The conventional baselines (``simple_interpolation``,
+``create_simple_interpolation``, ``apply_blur_filter``,
+``rescale_volume``; ``:1141-1250``) are host numpy and scipy code,
+copied.
+
 Not ported in this slice (each raises): ``num_devices > 1``, the
 AE+CAISR combo (``trainer.params_sr``), multichannel/VAE models and the
 packed decoder (``packed=True``).
@@ -598,3 +603,120 @@ def create_super_volumes(trainer, images_list: Sequence,
                     remain=meta["remain"], k_true=meta["k_true"],
                     orig_num_slices=meta["orig_num_slices"])
     return results
+
+
+# ---------------------------------------------------------------------------
+# conventional interpolation baselines (SimpleITK ExpandImageFilter port),
+# numpy + scipy on the host, copied from the JAX package
+# ---------------------------------------------------------------------------
+
+def _interp_weights(method: str, frac: np.ndarray):
+    """Per-output-sample kernel taps (offsets, weights) for 1-D z interp."""
+    if method == "nearest":
+        # ITK nearest rounds half UP (Math::RoundHalfIntegerUp);
+        # np.round's banker's rounding would pick the earlier slice at
+        # exact midpoints (every odd output slice for even factors)
+        offs = np.floor(frac + 0.5).astype(np.int64)
+        return offs[:, None], np.ones((len(frac), 1), np.float32)
+    if method == "linear":
+        w1 = frac.astype(np.float32)
+        return (np.stack([np.zeros_like(w1, dtype=np.int64),
+                          np.ones_like(w1, dtype=np.int64)], 1),
+                np.stack([1.0 - w1, w1], 1))
+    if method == "bspline":
+        # cubic B-spline kernel taps at offsets -1..2
+        t = frac.astype(np.float64)
+        offs = np.stack([np.full_like(t, o, dtype=np.float64)
+                         for o in (-1, 0, 1, 2)], 1)
+        x = np.abs(offs - t[:, None])
+        w = np.where(x < 1, (4 - 6 * x ** 2 + 3 * x ** 3) / 6.0,
+                     np.where(x < 2, ((2 - x) ** 3) / 6.0, 0.0))
+        return offs.astype(np.int64), (w / w.sum(1, keepdims=True)).astype(np.float32)
+    if method == "lanczos":
+        radius = 3
+        t = frac.astype(np.float64)
+        offs = np.stack([np.full_like(t, o)
+                         for o in range(-radius + 1, radius + 1)], 1)
+        x = offs - t[:, None]
+
+        def lanczos(x):
+            x = np.where(x == 0, 1e-12, x)
+            px = np.pi * x
+            return np.where(np.abs(x) < radius,
+                            radius * np.sin(px) * np.sin(px / radius)
+                            / (px * px), 0.0)
+
+        w = lanczos(x)
+        w = w / w.sum(1, keepdims=True)
+        return offs.astype(np.int64), w.astype(np.float32)
+    raise ValueError(f"unknown interpolation method {method!r}")
+
+
+def simple_interpolation(volume: np.ndarray, expand_factor: int,
+                         method: str = "lanczos") -> np.ndarray:
+    """z-axis expansion by integer factor, matching SimpleITK's
+    ExpandImageFilter geometry: output slice j samples input coordinate
+    j / expand_factor (reference: evaluate/common.py:114-118).
+    Runs as one vectorised gather+weighted-sum.
+    """
+    s = volume.shape[0]
+    out_n = s * expand_factor
+    pos = np.arange(out_n, dtype=np.float64) / expand_factor
+    base = np.floor(pos).astype(np.int64)
+    frac = pos - base
+    offs, w = _interp_weights(method, frac)
+    if method == "bspline":
+        # interpolating B-spline needs the coefficient prefilter
+        # (ITK's BSplineInterpolateImageFunction computes spline
+        # coefficients first); applying the smoothing kernel to raw
+        # samples would blur on-grid slices instead of reproducing them
+        import scipy.ndimage
+        volume = scipy.ndimage.spline_filter1d(
+            np.asarray(volume, np.float64), order=3, axis=0,
+            mode="mirror")
+    idx = np.clip(base[:, None] + offs, 0, s - 1)     # [out_n, taps]
+    taps = volume[idx]                                # [out_n, taps, H, W]
+    out = np.einsum("ot,othw->ohw", w.astype(volume.dtype), taps)
+    return out.astype(np.float32)
+
+
+def create_simple_interpolation(images: np.ndarray, expand_factor: int,
+                                method: str = "lanczos",
+                                generate_inbetween_slices: bool = False
+                                ) -> np.ndarray:
+    """Conventional-interpolation baseline with the reference's
+    strip-tails-then-upsample semantics (evaluate/common.py:74-111)."""
+    images = np.asarray(images, np.float32)
+    if not generate_inbetween_slices:
+        return simple_interpolation(images, expand_factor, method)
+    orig = images
+    orig_n = images.shape[0]
+    ds = int(expand_factor)
+    last_slice_id = np.arange(orig_n)[::ds][-1]
+    remain = (orig_n - 1) % ds
+    kept = images[:-remain] if remain else images
+    kept = kept[::ds]
+    up = simple_interpolation(kept, ds, method)
+    up = up[:last_slice_id + 1]
+    if remain > 0:
+        up = np.concatenate([up, orig[-remain:]], axis=0)
+    return up
+
+
+def apply_blur_filter(img: np.ndarray, sigma: float = 1.0) -> np.ndarray:
+    """Per-slice 2-D gaussian post-blur of an SR volume
+    (reference: evaluate/common.py:121-127 apply_blur_filter /
+    generate_blurred_sr_image — one vectorised call, not a slice loop)."""
+    import scipy.ndimage
+    return scipy.ndimage.gaussian_filter(
+        np.asarray(img, np.float32), (0.0, sigma, sigma))
+
+
+def rescale_volume(vol: np.ndarray) -> np.ndarray:
+    """Min-max rescale + clamp (reference: evaluate/common.py:129-133
+    rescale_tensor)."""
+    vol = np.asarray(vol, np.float32)
+    rng = vol.max() - vol.min()
+    if rng == 0:
+        return np.zeros_like(vol)
+    return np.clip((vol - vol.min()) / rng, 0.0, 1.0)

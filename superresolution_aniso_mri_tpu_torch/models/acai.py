@@ -147,15 +147,23 @@ class Encoder(nn.Module):
         self.head = Conv(k, cfg.latent, 3)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                update_stats: bool = True) -> torch.Tensor:
+                update_stats: bool = True, return_features: bool = False):
+        """The float32 latent; with ``return_features=True`` also the
+        list of both post-LeakyReLU activations of every scale (before
+        BN and pool) and the pre-head activation, the taps of the
+        encoder-backbone perceptual distance (``ops/perceptual.py``).
+        The flag changes only the return arity, never the latent."""
         cfg = self.config
+        feats = []
         x = x.to(cfg.dtype)
         if cfg.stem_pad_parity:
             x = F.pad(x, (1, 1, 1, 1))
         x = self.stem(x)
         for scale in range(cfg.scales):
             x = _leaky(self.convs[2 * scale](x))
+            feats.append(x)
             x = _leaky(self.convs[2 * scale + 1](x))
+            feats.append(x)
             if cfg.use_batchnorm:
                 x = self.bns[scale](x, train, update_stats)
             x = F.avg_pool2d(x, 2)
@@ -164,7 +172,11 @@ class Encoder(nn.Module):
                 x = blk(x)
             x = F.relu(x)
         x = _leaky(self.convs[-1](x))
-        return self.head(x).float()
+        feats.append(x)
+        z = self.head(x).float()
+        if return_features:
+            return z, feats
+        return z
 
 
 class Decoder(nn.Module):

@@ -61,10 +61,10 @@ def _conv_entries(prefix: str, leaf: dict, transpose: bool = False):
             f"{prefix}.bias": np.asarray(leaf["bias"], np.float32)}
 
 
-def _flat_params(params) -> Dict[str, np.ndarray]:
+def _flat_params(params, sides=("enc", "dec")) -> Dict[str, np.ndarray]:
     """Port parameter names → arrays of a flax params tree."""
     flat: Dict[str, np.ndarray] = {}
-    for side in ("enc", "dec"):
+    for side in sides:
         if side not in params:
             raise ValueError(f"flax tree has no {side!r} (keys: "
                              f"{sorted(params)})")
@@ -109,9 +109,29 @@ def flax_to_torch(params, batch_stats, cfg: AEConfig) -> Dict[str, torch.Tensor]
     if "enc" not in params and "ae" in params:
         params = params["ae"]
         batch_stats = (batch_stats or {}).get("ae", {})
+    return _matched(_flat_variables(params, batch_stats, ("enc", "dec")),
+                    VanillaACAI(cfg).state_dict(), cfg)
+
+
+def flax_encoder_to_torch(variables, cfg: AEConfig) -> Dict[str, torch.Tensor]:
+    """State dict for ``Encoder(cfg)`` from the variables of a flax
+    ``Encoder`` alone (``{"params": ..., "batch_stats": ...}``, the
+    ``enc`` subtree of a trained model, as the encoder-perceptual
+    artifact stores it). Raises on any mismatch, like ``flax_to_torch``."""
+    from .acai import Encoder
+
+    flat = _flat_variables({"enc": variables["params"]},
+                           {"enc": variables.get("batch_stats") or {}},
+                           ("enc",))
+    want = {f"enc.{k}": v for k, v in Encoder(cfg).state_dict().items()}
+    return {k[len("enc."):]: v for k, v in _matched(flat, want, cfg).items()}
+
+
+def _flat_variables(params, batch_stats, sides) -> Dict[str, np.ndarray]:
+    """``_flat_params`` plus the running statistics of every BatchNorm."""
     batch_stats = batch_stats or {}
-    flat = _flat_params(params)
-    for side in ("enc", "dec"):
+    flat = _flat_params(params, sides)
+    for side in sides:
         stats = batch_stats.get(side, {}) or {}
         for name in params[side]:
             if not name.startswith("BatchNorm_"):
@@ -125,7 +145,7 @@ def flax_to_torch(params, batch_stats, cfg: AEConfig) -> Dict[str, torch.Tensor]
                                                       np.float32)
             flat[f"{path}.running_var"] = np.asarray(stats[name]["var"],
                                                      np.float32)
-    return _matched(flat, VanillaACAI(cfg).state_dict(), cfg)
+    return flat
 
 
 def flax_moments_to_torch(tree, cfg: AEConfig) -> Dict[str, torch.Tensor]:

@@ -1,6 +1,7 @@
-"""Image-quality metrics (SSIM / PSNR / VIF) over [S, H, W] volumes.
+"""Image-quality metrics (SSIM / MS-SSIM / PSNR / VIF) over [S, H, W]
+volumes.
 
-Port of ``superresolution_aniso_mri_tpu/ops/metrics.py:35-136,213-363``.
+Port of ``superresolution_aniso_mri_tpu/ops/metrics.py:35-363``.
 Every function takes float tensors on any device and is batched over the
 slice axis; results are float32 per slice. ``ssim_volume`` here is the
 plain PyTorch version of the CUDA SSIM kernel (``ops/cuda_kernels.py``):
@@ -106,6 +107,78 @@ def ssim2d(im1: torch.Tensor, im2: torch.Tensor, data_range: float = 1.0,
            win_size: int = 7) -> torch.Tensor:
     """SSIM of one [H, W] image pair (a scalar tensor)."""
     return ssim_volume(im1[None], im2[None], data_range, win_size)[0]
+
+
+def _ssim_cs2d(im1: torch.Tensor, im2: torch.Tensor, data_range: float,
+               win_size: int):
+    """Per-slice means of (luminance*cs, cs) for one scale of MS-SSIM,
+    over [S, H, W] pairs → two [S] tensors."""
+    im1 = im1.to(torch.float32)
+    im2 = im2.to(torch.float32)
+    f = functools.partial(_box_mean_valid, win=win_size)
+    ux, uy = f(im1), f(im2)
+    uxx, uyy, uxy = f(im1 * im1), f(im2 * im2), f(im1 * im2)
+    np_ = win_size * win_size
+    cov_norm = np_ / (np_ - 1.0)
+    vx = cov_norm * (uxx - ux * ux)
+    vy = cov_norm * (uyy - uy * uy)
+    vxy = cov_norm * (uxy - ux * uy)
+    c1 = (0.01 * data_range) ** 2
+    c2 = (0.03 * data_range) ** 2
+    cs = (2.0 * vxy + c2) / (vx + vy + c2)
+    lum = (2.0 * ux * uy + c1) / (ux * ux + uy * uy + c1)
+    return (lum * cs).mean(dim=(-2, -1)), cs.mean(dim=(-2, -1))
+
+
+_MSSSIM_WEIGHTS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
+
+
+def msssim_volume(ref: torch.Tensor, dist: torch.Tensor,
+                  data_range: float = 1.0, win_size: int = 7,
+                  levels: int = 5) -> torch.Tensor:
+    """Multi-scale SSIM (Wang et al. 2003) per slice of [S, H, W] → [S].
+
+    The standard 5-level weights, renormalised when ``levels`` < 5 (a
+    64² slice supports 3 dyadic scales with a 7-pixel window); the
+    contrast-structure term at every scale and the luminance-weighted
+    SSIM at the coarsest, negative terms clamped to 0 (as
+    tf.image.ssim_multiscale does); 2x2 average pooling between scales.
+    Raises ValueError when the coarsest scale is smaller than the
+    window."""
+    h0, w0 = ref.shape[-2], ref.shape[-1]
+    min_side = min(h0, w0) // (2 ** (levels - 1))
+    if min_side < win_size:
+        raise ValueError(
+            f"msssim2d: {h0}x{w0} input supports at most "
+            f"{max(1, int(np.log2(min(h0, w0) / win_size)) + 1)} "
+            f"dyadic levels with win_size={win_size}, got levels={levels} "
+            f"(coarsest scale {min_side} < window)")
+    w = np.asarray(_MSSSIM_WEIGHTS[:levels], np.float32)
+    w = w / w.sum()
+    im1 = ref.to(torch.float32)
+    im2 = dist.to(torch.float32)
+    val = torch.ones(ref.shape[:-2], dtype=torch.float32, device=ref.device)
+    for lv in range(levels):
+        s, cs = _ssim_cs2d(im1, im2, data_range, win_size)
+        term = s if lv == levels - 1 else cs
+        val = val * torch.clamp_min(term, 0.0) ** float(w[lv])
+        if lv != levels - 1:
+            h = (im1.shape[-2] // 2) * 2
+            ww = (im1.shape[-1] // 2) * 2
+
+            def pool(x):
+                return (x[..., :h:2, :ww:2] + x[..., 1:h:2, :ww:2]
+                        + x[..., :h:2, 1:ww:2] + x[..., 1:h:2, 1:ww:2]) / 4.0
+
+            im1, im2 = pool(im1), pool(im2)
+    return val
+
+
+def msssim2d(im1: torch.Tensor, im2: torch.Tensor, data_range: float = 1.0,
+             win_size: int = 7, levels: int = 5) -> torch.Tensor:
+    """MS-SSIM of one [H, W] image pair (a scalar tensor)."""
+    return msssim_volume(im1[None], im2[None], data_range, win_size,
+                         levels)[0]
 
 
 # ---------------------------------------------------------------------------

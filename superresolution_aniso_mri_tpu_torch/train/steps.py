@@ -17,13 +17,22 @@ once; the auxiliary passes (outward-neighbour encodes, the decode of the
 mix, the encodes of ``slice_between`` and of the synthesized slice)
 normalise with their own batch statistics and advance nothing.
 
+Losses: MSE, or with ``lpips_params`` the VGG LPIPS (``perceptual``)
+or the encoder-backbone distance (``perceptual_enc``) for the
+reconstruction (``recon_loss``) and the synthesis loss
+(``image_mix_loss_func``); ``use_ssim_loss`` adds 0.135·(1 − SSIM, win
+11) to the MSE reconstruction loss through the plain, differentiable
+``ops/metrics.py::ssim_volume`` (the JAX step uses its XLA SSIM there,
+not the Pallas kernel). The LPIPS weights are frozen tensors passed to
+the step builders, never among the model's parameters.
+
 Metrics are device tensors (no host sync per step) under the JAX step's
 keys; ``loss_ae_dist_extra`` is logged weighted by ``mix_weight``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -31,6 +40,9 @@ from ..device import f32_exact
 from ..models import VanillaACAI
 from ..ops.lap_pyramid import lap_loss, lap_loss_per_sample
 from ..ops.losses import latent_mix, latent_mix_cubic, latent_mix_lanczos3, mse
+from ..ops.lpips import lpips_distance
+from ..ops.metrics import ssim_volume
+from ..ops.perceptual import enc_lpips_distance
 from .state import TrainState
 
 Batch = Dict[str, torch.Tensor]
@@ -52,9 +64,9 @@ FAMILY_OF_MODEL = {
 @dataclasses.dataclass(frozen=True)
 class LossConfig:
     """The JAX package's loss configuration, the fields of the ``ae``
-    families (same names and defaults); the port trains them with MSE
-    losses (``check_supported``). The other families' fields come with
-    ROADMAP item 9."""
+    families (same names and defaults). The other families' fields come
+    with ROADMAP item 9. ``lpips_dtype`` is the precision of the
+    perceptual distance's backbone ('float32' or 'bfloat16')."""
 
     model: str = "ae_combined"
     recon_loss: str = "mse"
@@ -64,6 +76,7 @@ class LossConfig:
     use_extra_latent_loss: bool = False
     use_masks: bool = False
     train_latent_interp: str = "linear"
+    lpips_dtype: str = "float32"
 
     @property
     def family(self) -> str:
@@ -81,15 +94,6 @@ def check_supported(cfg: LossConfig) -> None:
         raise NotImplementedError(
             f"model {cfg.model!r} (family {cfg.family!r}): the port trains "
             f"the ae and ae_combined families only (ROADMAP item 9)")
-    if cfg.recon_loss != "mse" or cfg.image_mix_loss_func not in (None,
-                                                                  "mse"):
-        raise NotImplementedError(
-            f"recon_loss={cfg.recon_loss!r}, image_mix_loss_func="
-            f"{cfg.image_mix_loss_func!r}: perceptual losses are not "
-            f"ported yet (ROADMAP item 8); use mse")
-    if cfg.use_ssim_loss:
-        raise NotImplementedError(
-            "use_ssim_loss needs a differentiable SSIM (ROADMAP item 8)")
     if cfg.train_latent_interp not in ("linear", "cubic", "lanczos3"):
         raise ValueError(f"unknown train_latent_interp "
                          f"{cfg.train_latent_interp!r}")
@@ -99,21 +103,49 @@ def _weighted(per_sample: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return (per_sample * weight).sum() / weight.sum().clamp_min(1.0)
 
 
-def _recon_loss(cfg: LossConfig, pred: torch.Tensor, target: torch.Tensor):
-    """(loss_ae, loss_ae_dist, loss_laploss): MSE plus, with
-    ``use_laploss``, the Laplacian-pyramid term."""
-    dist = mse(pred, target)
+def _recon_loss(cfg: LossConfig, lpips_params: Any, pred: torch.Tensor,
+                target: torch.Tensor):
+    """(loss_ae, loss_ae_dist, loss_laploss): the perceptual distance
+    (with ``lpips_params``) or MSE (+ the SSIM term with
+    ``use_ssim_loss``), plus, with ``use_laploss``, the Laplacian-pyramid
+    term in either branch (the reference adds it after the dispatch)."""
+    if cfg.recon_loss == "perceptual_enc" and lpips_params is not None:
+        dist = enc_lpips_distance(lpips_params, pred, target,
+                                  compute_dtype=cfg.lpips_dtype).mean()
+    elif cfg.recon_loss == "perceptual" and lpips_params is not None:
+        dist = lpips_distance(lpips_params, pred, target, normalize=True,
+                              compute_dtype=cfg.lpips_dtype).mean()
+    else:
+        dist = mse(pred, target)
+        if cfg.use_ssim_loss:
+            s = ssim_volume(pred[:, 0], target[:, 0], data_range=1.0,
+                            win_size=11).mean()
+            dist = dist + 0.135 * (1.0 - s)
     lap = lap_loss(pred, target) if cfg.use_laploss else pred.new_zeros(())
     return dist + lap, dist, lap
 
 
-def _mix_image_loss(cfg: LossConfig, reference: torch.Tensor,
-                    synthesized: torch.Tensor,
+def _mix_image_loss(cfg: LossConfig, lpips_params: Any,
+                    reference: torch.Tensor, synthesized: torch.Tensor,
                     mask: Optional[torch.Tensor],
                     sample_weight: Optional[torch.Tensor] = None):
-    """Synthesis loss, MSE branch: per-sample ``sample_weight``
+    """Synthesis loss: the perceptual distance (``perceptual`` or
+    ``perceptual_enc`` with ``lpips_params``; no lap term, as in the
+    reference) or MSE (+ lap). Per-sample ``sample_weight``
     (``is_inbetween``) keeps degenerate triplets out, of the lap term
     too; all-ones weights give the unweighted loss."""
+    if (cfg.image_mix_loss_func in ("perceptual", "perceptual_enc")
+            and lpips_params is not None):
+        dist_fn = (enc_lpips_distance
+                   if cfg.image_mix_loss_func == "perceptual_enc"
+                   else lpips_distance)
+        if cfg.use_masks and mask is not None:
+            reference, synthesized = reference * mask, synthesized * mask
+        d = dist_fn(lpips_params, reference, synthesized, normalize=True,
+                    compute_dtype=cfg.lpips_dtype)
+        if sample_weight is not None:
+            return _weighted(d, sample_weight)
+        return d.mean()
     m = mask if (cfg.use_masks and mask is not None) else None
     if sample_weight is None:
         loss = mse(reference, synthesized, m)
@@ -168,14 +200,15 @@ def _train_latent_mix(model: VanillaACAI, cfg: LossConfig, z: torch.Tensor,
     return latent_mix(z, batch["alpha_from"], batch["alpha_to"])
 
 
-def _ae_losses(model: VanillaACAI, cfg: LossConfig, batch: Batch,
+def _ae_losses(model: VanillaACAI, cfg: LossConfig, lpips_params: Any,
+               batch: Batch,
                mix_weight) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, metrics) of the ``ae`` / ``ae_combined`` families."""
     x = batch["image"]
     between = batch["slice_between"]
     z = model.encode(x, train=True)
     out = model.decode(z, train=True)
-    loss_ae, loss_dist, loss_lap = _recon_loss(cfg, out, x)
+    loss_ae, loss_dist, loss_lap = _recon_loss(cfg, lpips_params, out, x)
 
     z_mix = _train_latent_mix(model, cfg, z, batch)
     s_mix = model.decode(z_mix, train=True, update_stats=False)
@@ -184,7 +217,7 @@ def _ae_losses(model: VanillaACAI, cfg: LossConfig, batch: Batch,
                "loss_latent_1": mse(z_mix, z_ref)}
     if cfg.family == "ae_combined":
         sw = batch.get("is_inbetween")
-        loss_mix = _mix_image_loss(cfg, between, s_mix,
+        loss_mix = _mix_image_loss(cfg, lpips_params, between, s_mix,
                                    batch.get("loss_mask"), sample_weight=sw)
         loss_extra = mix_weight * loss_mix
         if cfg.use_extra_latent_loss:
@@ -199,17 +232,21 @@ def _ae_losses(model: VanillaACAI, cfg: LossConfig, batch: Batch,
     return loss_ae, {k: v.detach() for k, v in metrics.items()}
 
 
-def make_train_step(cfg: LossConfig) -> Callable:
+def make_train_step(cfg: LossConfig, lpips_params: Any = None) -> Callable:
     """``step(state, batch, mix_weight) → (state, metrics)``: forward,
     backward and one optimizer update, in place on ``state`` (its model
     and optimizer state); float32 work with TF32 off. ``mix_weight`` is
-    the synthesis-loss weight (a float or a 0-d tensor)."""
+    the synthesis-loss weight (a float or a 0-d tensor).
+    ``lpips_params``: the frozen weights of the perceptual losses
+    (``ops.get_lpips_params`` or ``ops.get_enc_perceptual_params``);
+    without them the perceptual losses fall back to MSE, as in JAX."""
     check_supported(cfg)
 
     def step(state: TrainState, batch: Batch, mix_weight):
         with f32_exact():
             params = state.params()
-            loss, metrics = _ae_losses(state.model, cfg, batch, mix_weight)
+            loss, metrics = _ae_losses(state.model, cfg, lpips_params,
+                                       batch, mix_weight)
             grads = torch.autograd.grad(loss, list(params.values()))
             state.tx.step({k: p.data for k, p in params.items()},
                           dict(zip(params, grads)), state.opt_state)
@@ -219,10 +256,11 @@ def make_train_step(cfg: LossConfig) -> Callable:
     return step
 
 
-def make_eval_step(cfg: LossConfig) -> Callable:
+def make_eval_step(cfg: LossConfig, lpips_params: Any = None) -> Callable:
     """``eval_step(model, batch, mix_weight=None) → (metrics, aux)``:
-    eval-mode forward and the training loss decomposition; the mix
-    losses are weighted by ``mix_weight`` (None: 1)."""
+    eval-mode forward and the training loss decomposition (with the
+    perceptual weights ``lpips_params``, as ``make_train_step``); the
+    mix losses are weighted by ``mix_weight`` (None: 1)."""
     check_supported(cfg)
 
     @torch.no_grad()
@@ -233,7 +271,8 @@ def make_eval_step(cfg: LossConfig) -> Callable:
         with f32_exact():
             z = model.encode(x)
             recon = model.decode(z)
-            loss_ae, loss_dist, lap = _recon_loss(cfg, recon, x)
+            loss_ae, loss_dist, lap = _recon_loss(cfg, lpips_params, recon,
+                                                  x)
             z_mix = _train_latent_mix(model, cfg, z, batch, train=False)
             s_mix = model.decode(z_mix)
             z_ref = model.encode(between)
@@ -242,7 +281,7 @@ def make_eval_step(cfg: LossConfig) -> Callable:
                        "loss_latent_1": mse(z_mix, z_ref)}
             if cfg.combined or cfg.image_mix_loss_func is not None:
                 loss_mix = _mix_image_loss(
-                    cfg, between, s_mix, batch.get("loss_mask"),
+                    cfg, lpips_params, between, s_mix, batch.get("loss_mask"),
                     sample_weight=batch.get("is_inbetween"))
                 metrics["loss_ae_dist_extra"] = w * loss_mix
         return metrics, {"reconstruction": recon,

@@ -12,13 +12,18 @@ package's experiment files under ``output_dir``:
   loss_iters.npz, losses_train.npz, losses_test.npz
   log_images/                  (``cli/train_loop.py`` writes the PNGs)
 
+The perceptual losses take frozen weights that the trainer resolves
+as JAX does (``lpips_params``: VGG LPIPS for ``perceptual``, the encoder
+artifact for ``perceptual_enc``) and records their mode in
+``args["lpips_mode"]``, hence in ``settings.yaml``; they are not among
+``state.params()``, so the optimizer never sees them.
+
 Not ported, and raising when training: other families and models (item
-9), perceptual and SSIM losses (item 8), EMA weights,
-``steps_per_dispatch`` (``train_many``) and TensorBoard logging (item
-7), ``num_devices > 1`` (item 11). An ``eval_mode`` trainer (serving,
-scoring) takes any experiment of a VanillaACAI model: it builds no
-train or eval step, so the training-only options and losses of the
-experiment do not matter.
+9), EMA weights, ``steps_per_dispatch`` (``train_many``) and
+TensorBoard logging (item 7), ``num_devices > 1`` (item 11). An
+``eval_mode`` trainer (serving, scoring) takes any experiment of a
+VanillaACAI model: it builds no train or eval step, so the
+training-only options of the experiment do not matter.
 """
 from __future__ import annotations
 
@@ -33,6 +38,8 @@ from ..config.settings import (apply_setting_defaults, load_settings,
                                save_experiment_settings)
 from ..device import resolve_device
 from ..models import AEConfig, VanillaACAI
+from ..ops.lpips import get_lpips_params, lpips_weights_info
+from ..ops.perceptual import get_enc_perceptual_params
 from .checkpoint import load_checkpoint, save_checkpoint
 from .state import create_train_state
 from .steps import (FAMILY_OF_MODEL, LossConfig, make_eval_step,
@@ -66,6 +73,8 @@ def loss_config_from_args(args: Dict[str, Any]) -> LossConfig:
         use_extra_latent_loss=bool(args.get("use_extra_latent_loss", False)),
         use_masks=bool(args.get("get_masks", False)),
         train_latent_interp=tli,
+        # bf16 model compute carries the LPIPS VGG stack with it
+        lpips_dtype=str(args.get("compute_dtype") or "float32"),
     )
 
 
@@ -116,6 +125,17 @@ class Trainer:
         self.model_config = AEConfig.from_args(self.args)
         self.loss_config = loss_config_from_args(self.args)
         self.family = self.loss_config.family
+        lc = self.loss_config
+        needs_lpips = "perceptual" in (lc.recon_loss, lc.image_mix_loss_func)
+        if "perceptual_enc" in (lc.recon_loss, lc.image_mix_loss_func):
+            self.lpips_params = get_enc_perceptual_params(device=self.device)
+            self.args["lpips_mode"] = "encoder_backbone"
+        else:
+            self.lpips_params = (get_lpips_params(device=self.device)
+                                 if needs_lpips else None)
+        if needs_lpips:
+            # which LPIPS weights engaged, so settings.yaml carries it
+            self.args["lpips_mode"] = lpips_weights_info()["mode"]
         model = VanillaACAI(self.model_config)
         model.reset_parameters(torch.Generator().manual_seed(
             seed if seed is not None else int(self.args.get("seed", 0))))
@@ -134,8 +154,10 @@ class Trainer:
             float(self.args.get("max_grad_norm", 0) or 0),
             int(self.args.get("lr_warmup_steps", 0) or 0))
         if not eval_mode:
-            self.train_step = make_train_step(self.loss_config)
-            self.eval_step = make_eval_step(self.loss_config)
+            self.train_step = make_train_step(self.loss_config,
+                                              self.lpips_params)
+            self.eval_step = make_eval_step(self.loss_config,
+                                            self.lpips_params)
         # synthesis cores and sweep evaluators built for this model
         self.synth_cache: dict = {}
         self.test_predictions = None

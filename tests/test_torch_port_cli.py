@@ -242,8 +242,16 @@ def test_create_hr_images_saves_and_scores_like_jax(dirs, tmp_path):
         np.testing.assert_allclose(g[0], w[0], atol=ATOL, err_msg=rel)
         assert g[0].dtype == w[0].dtype
         np.testing.assert_array_equal(g[1], w[1])
-    with pytest.raises(NotImplementedError, match="item 13"):
-        create_hr_images(None, vols, 2, interpol_method="linear")
+    # the conventional baseline needs no trainer: the same scores as JAX
+    with _highest():
+        want = jax_create(None, _eval_volumes(JaxVolume), 2,
+                          interpol_method="linear")
+    got = create_hr_images(None, vols, 2, interpol_method="linear",
+                           device="cpu")
+    for pid, v in want["per_volume"].items():
+        for k in v:
+            np.testing.assert_allclose(got["per_volume"][pid][k], v[k],
+                                       atol=1e-4, err_msg=f"linear {pid} {k}")
 
 
 @pytest.mark.parametrize("per_frame", [False, True])
@@ -336,7 +344,6 @@ def test_port_train_resumes_and_saves_on_interrupt(dirs, tmp_path,
     (["-d", "MNISTRoto"], "item 15"),
     (["--profile_dir", "PROFILE"], "item 16"),
     (["--ema_decay", "0.99"], "item 7"),
-    (["--image_mix_loss_func", "perceptual"], "item 8"),
 ])
 def test_train_refuses_what_is_not_ported_before_writing(tmp_path, extra,
                                                          item):
@@ -345,6 +352,25 @@ def test_train_refuses_what_is_not_ported_before_writing(tmp_path, extra,
         entry.train_brain(TINY + ["-o", str(tmp_path), "-id", "x",
                                   "--device", "cpu"] + extra)
     assert not os.path.exists(tmp_path / "x")
+
+
+def test_train_brain_trains_the_perceptual_mix_loss(tmp_path):
+    """``--image_mix_loss_func perceptual`` trains (it was refused before
+    the LPIPS port): finite losses, and settings.yaml records the LPIPS
+    weights' mode as the JAX script does."""
+    from superresolution_aniso_mri_tpu_torch.config import load_settings
+
+    with pytest.warns(UserWarning, match="RANDOM VGG features"):
+        tr = entry.train_brain(TINY + ["-o", str(tmp_path), "-id", "p",
+                                       "--device", "cpu", "-e", "1",
+                                       "--image_mix_loss_func",
+                                       "perceptual"])
+    settings = load_settings(str(tmp_path / "p" / "settings.yaml"))
+    assert settings["image_mix_loss_func"] == "perceptual"
+    assert settings["lpips_mode"] == "lin_converted_vgg_random"
+    loss = np.load(tmp_path / "p" / "losses_train.npz")
+    assert np.isfinite(loss["loss_ae_dist_extra"]).all()
+    assert tr.lpips_params is not None
 
 
 def test_commands_raise_without_a_card(dirs, tmp_path, monkeypatch):

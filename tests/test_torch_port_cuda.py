@@ -308,3 +308,113 @@ def test_augmentation_and_device_cache_on_card(cuda):
         assert sorted(a) == sorted(b)
         for k in b:
             assert torch.equal(a[k], b[k]), k
+
+
+def _lpips_weights(device):
+    import warnings
+
+    from superresolution_aniso_mri_tpu_torch.ops import get_lpips_params
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return get_lpips_params(device=device)
+
+
+def test_lpips_on_card_matches_cpu(cuda):
+    """VGG LPIPS in float32 (TF32 off) on the card against the CPU
+    within 1e-4 relative, and its input gradient within 1e-3 of the
+    largest entry (cuDNN and oneDNN sum the 13 convolutions in other
+    orders: 1.5e-5 and 2.7e-4 measured on an H100; TF32 would give
+    ~1e-3 and more); the bfloat16 stack within 2e-2."""
+    from superresolution_aniso_mri_tpu_torch.ops import lpips_distance
+
+    a, b = _pair((4, 64, 72), seed=5)
+    got_w, want_w = _lpips_weights(cuda), _lpips_weights("cpu")
+    x0, x1 = (torch.from_numpy(v[:, None]) for v in (a, b))
+    want = lpips_distance(want_w, x0, x1)
+    got = lpips_distance(got_w, x0.to(cuda), x1.to(cuda)).cpu()
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
+    bf16 = lpips_distance(got_w, x0.to(cuda), x1.to(cuda),
+                          compute_dtype="bfloat16").cpu()
+    assert float((bf16 - want).abs().max() / want.abs().max()) <= 2e-2
+    grads = []
+    for w, dev in ((got_w, cuda), (want_w, torch.device("cpu"))):
+        x = x0.to(dev).requires_grad_(True)
+        lpips_distance(w, x, x1.to(dev)).mean().backward()
+        grads.append(x.grad.cpu())
+    gap = (grads[0] - grads[1]).abs().max() / grads[1].abs().max()
+    assert float(gap) <= 1e-3
+
+
+def test_perceptual_train_step_on_card_matches_cpu(cuda):
+    """One float32 train step with the perceptual synthesis loss (the
+    default of ae_combined) from the same weights and batch: every
+    metric within rel 1e-4, parameters within 2·lr."""
+    from superresolution_aniso_mri_tpu_torch.models import (AEConfig,
+                                                            VanillaACAI)
+    from superresolution_aniso_mri_tpu_torch.train import (
+        LossConfig, create_train_state, make_train_step)
+
+    lr = 1e-5
+    cfg = AEConfig(width=32, latent_width=8, depth=4, latent=6)
+    loss_cfg = LossConfig(model="ae_combined",
+                          image_mix_loss_func="perceptual")
+    rng = np.random.RandomState(1)
+    a_to = rng.uniform(0.1, 0.9, 2).astype(np.float32)
+    batch = {"image": rng.rand(4, 1, 32, 32).astype(np.float32),
+             "slice_between": rng.rand(2, 1, 32, 32).astype(np.float32),
+             "alpha_from": 1 - a_to, "alpha_to": a_to}
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        model = VanillaACAI(cfg)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        state = create_train_state(model.to(dev), lr)
+        step = make_train_step(loss_cfg, _lpips_weights(dev))
+        _, metrics = step(state, {k: torch.from_numpy(v).to(dev)
+                                  for k, v in batch.items()}, 0.3)
+        out.append((state, metrics))
+    (card, got), (cpu, want) = out
+    for k in want:
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-4,
+                                   err_msg=k)
+    for p, q in zip(card.model.parameters(), cpu.model.parameters()):
+        assert float((p.detach().cpu() - q.detach()).abs().max()) <= 2 * lr
+
+
+def test_create_hr_images_with_lpips_on_card(cuda):
+    """create_hr_images(compute_percept_metrics=True) on the card: one
+    SSIM launch a volume, the same scores as on the CPU (LPIPS within
+    1e-5 relative), and the weights' mode in the result; the linear
+    baseline scores the same way without a trainer."""
+    from superresolution_aniso_mri_tpu_torch.data import Volume
+    from superresolution_aniso_mri_tpu_torch.evaluate import create_hr_images
+    from superresolution_aniso_mri_tpu_torch.infer import ServingModel
+    from superresolution_aniso_mri_tpu_torch.models import AEConfig
+
+    cfg = AEConfig(width=32, latent_width=8, depth=8, latent=6)
+    card = ServingModel(cfg, device=cuda,
+                        generator=torch.Generator().manual_seed(0))
+    cpu = ServingModel(cfg, card._ae_model().state_dict(), device="cpu")
+    vols = [Volume(image=_pair((13, 40, 44), seed=s)[0],
+                   spacing=np.array([2.0, 1.0, 1.0]), patient_id=f"p{s}")
+            for s in (2, 3)]
+    import warnings
+
+    for trainer, method in ((card, "model"), (None, "linear")):
+        before = cuda_kernels.LAUNCHES["ssim_slice"]
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            got = create_hr_images(trainer, vols, 2, interpol_method=method,
+                                   compute_percept_metrics=True)
+            want = create_hr_images(cpu if trainer else None, vols, 2,
+                                    interpol_method=method,
+                                    compute_percept_metrics=True,
+                                    device="cpu")
+        assert cuda_kernels.LAUNCHES["ssim_slice"] == before + len(vols)
+        assert got["lpips_mode"] == want["lpips_mode"] == \
+            "lin_converted_vgg_random"
+        for pid, m in want["per_volume"].items():
+            for k, v in m.items():
+                np.testing.assert_allclose(got["per_volume"][pid][k], v,
+                                           rtol=1e-5, atol=1e-4,
+                                           err_msg=f"{method} {pid} {k}")

@@ -259,14 +259,37 @@ def test_trainer_writes_the_jax_experiment_files(tmp_path, monkeypatch):
     (dict(ae_class="VAE"), "item 9"),
     (dict(model="alpha"), "item 9"),
     (dict(dataset="ACDCLBL"), "item 9"),
-    (dict(image_mix_loss_func="perceptual"), "item 8"),
-    (dict(use_percept_loss=True), "item 8"),
 ])
 def test_trainer_raises_for_what_is_not_ported(extra, item):
     from superresolution_aniso_mri_tpu_torch.train import Trainer
 
     with pytest.raises(NotImplementedError, match=item):
         Trainer(dict(ARGS, **extra), device="cpu")
+
+
+@pytest.mark.parametrize("extra, recon, mix", [
+    (dict(image_mix_loss_func="perceptual"), "mse", "perceptual"),
+    (dict(use_percept_loss=True, image_mix_loss_func=None), "perceptual",
+     "perceptual"),
+])
+def test_trainer_builds_the_perceptual_losses(extra, recon, mix):
+    """The perceptual losses train (they were refused before the LPIPS
+    port): the frozen VGG weights are resolved on the trainer's device,
+    their mode is recorded in the args, and none of them is a parameter
+    of the train state or an entry of its checkpointed state."""
+    from superresolution_aniso_mri_tpu_torch.train import Trainer
+
+    with pytest.warns(UserWarning, match="RANDOM VGG features"):
+        tr = Trainer(dict(ARGS, **extra), device="cpu")
+    assert (tr.loss_config.recon_loss,
+            tr.loss_config.image_mix_loss_func) == (recon, mix)
+    assert tr.args["lpips_mode"] == "lin_converted_vgg_random"
+    frozen = [c["kernel"] for c in tr.lpips_params["convs"]]
+    assert all(t.device.type == "cpu" and not t.requires_grad
+               for t in frozen)
+    owned = {t.data_ptr() for t in tr.state.params().values()}
+    owned |= {t.data_ptr() for t in tr.model.state_dict().values()}
+    assert not owned & {t.data_ptr() for t in frozen}
 
 
 def test_trainer_defaults_to_cuda(monkeypatch):

@@ -166,10 +166,27 @@ def test_compute_volume_metrics_window_shrinks_on_very_thin_views():
                                        atol=1e-6, err_msg=f"{s} {key}")
 
 
-def test_lpips_scoring_raises_with_roadmap_item():
-    a, b = _pair()
-    with pytest.raises(NotImplementedError, match="S6"):
-        compute_volume_metrics(a, b, lpips_params={}, device="cpu")
+def test_lpips_scoring_matches_jax():
+    """compute_volume_metrics with LPIPS weights (it raised before the
+    LPIPS port): 'lpips' and 'lpips_synth' within 1e-5 relative of JAX,
+    every other key as without them."""
+    import warnings
+
+    from superresolution_aniso_mri_tpu.ops import lpips as jl
+    from superresolution_aniso_mri_tpu_torch.ops import lpips as tl
+
+    a, b = _pair(shape=(7, 32, 36))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        jp, tp = jl.get_lpips_params(), tl.get_lpips_params(device="cpu")
+    want = jdrv.compute_volume_metrics(a, b, downsample_steps=3,
+                                       lpips_params=jp)
+    got = compute_volume_metrics(a, b, downsample_steps=3, lpips_params=tp,
+                                 device="cpu")
+    assert list(got) == list(want)
+    for key in want:
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-5,
+                                   atol=1e-6, err_msg=key)
 
 
 def test_aggregate_and_uniquifier_match_jax():

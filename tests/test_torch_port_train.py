@@ -375,16 +375,75 @@ def test_eval_step_matches_jax(case):
 @pytest.mark.parametrize("loss_kw, item", [
     (dict(model="vae"), "item 9"),
     (dict(model="acai_combined"), "item 9"),
-    (dict(recon_loss="perceptual"), "item 8"),
-    (dict(image_mix_loss_func="perceptual"), "item 8"),
-    (dict(image_mix_loss_func="perceptual_enc"), "item 8"),
-    (dict(use_ssim_loss=True), "item 8"),
 ])
 def test_unported_losses_raise(loss_kw, item):
     cfg = LossConfig(**{**LOSS, **loss_kw})
     for build in (make_train_step, make_eval_step):
         with pytest.raises(NotImplementedError, match=item):
             build(cfg)
+
+
+@pytest.fixture(scope="module")
+def perceptual_weights():
+    """{'vgg': the VGG LPIPS weights, 'enc': the encoder artifact}, on
+    the CPU."""
+    import warnings
+
+    from superresolution_aniso_mri_tpu_torch.ops import (
+        get_enc_perceptual_params, get_lpips_params)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return {"vgg": get_lpips_params(device="cpu"),
+                "enc": get_enc_perceptual_params(device="cpu")}
+
+
+@pytest.mark.parametrize("loss_kw", [
+    dict(recon_loss="perceptual"),
+    dict(image_mix_loss_func="perceptual"),
+    dict(image_mix_loss_func="perceptual_enc"),
+    dict(use_ssim_loss=True),
+], ids=["recon_perceptual", "mix_perceptual", "mix_perceptual_enc",
+        "ssim"])
+def test_perceptual_and_ssim_losses_build_and_train(loss_kw,
+                                                    perceptual_weights):
+    """The losses refused before the LPIPS port: both steps build, a
+    train step gives finite metrics and moves the weights, and the eval
+    step's loss terms are the distance they name on its own outputs
+    (rtol 1e-5). Parity with JAX is in test_torch_port_perceptual_train."""
+    from superresolution_aniso_mri_tpu_torch.ops import (
+        enc_lpips_distance, lpips_distance, ssim_volume)
+
+    cfg = LossConfig(**{**LOSS, **loss_kw})
+    lp = perceptual_weights["enc" if "perceptual_enc" in loss_kw.values()
+                            else "vgg"]
+    _, params, stats = jax_model(0)
+    state = port_train_state(params, stats, lr=LR)
+    before = [p.detach().clone() for p in state.model.parameters()]
+    nb = torch_batch(np_batch(0, inbetween=False))
+    _, tm = make_train_step(cfg, lp)(state, nb, MIX)
+    assert all(np.isfinite(float(v)) for v in tm.values())
+    assert any(not torch.equal(p, q)
+               for p, q in zip(before, state.model.parameters()))
+    em, aux = make_eval_step(cfg, lp)(state.model, nb, MIX)
+    recon, x = aux["reconstruction"], nb["image"]
+    if cfg.recon_loss == "perceptual":
+        want_dist = lpips_distance(lp, recon, x).mean()
+    elif cfg.use_ssim_loss:
+        want_dist = (mse(recon, x) + 0.135 * (
+            1.0 - ssim_volume(recon[:, 0], x[:, 0], 1.0, 11).mean()))
+    else:
+        want_dist = mse(recon, x)
+    np.testing.assert_allclose(float(em["loss_ae_dist"]), float(want_dist),
+                               rtol=1e-5)
+    dist_fn = {"perceptual": lpips_distance,
+               "perceptual_enc": enc_lpips_distance}.get(
+                   cfg.image_mix_loss_func)
+    if dist_fn is not None:
+        want_mix = dist_fn(lp, nb["slice_between"],
+                           aux["slice_inbetween_mix"]).mean()
+        np.testing.assert_allclose(float(em["loss_ae_dist_extra"]),
+                                   MIX * float(want_mix), rtol=1e-5)
 
 
 def test_train_step_keeps_metrics_on_the_device():
