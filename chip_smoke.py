@@ -6,9 +6,11 @@ hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py                        # one card, no arguments
     python3 chip_smoke.py --profile out/prof.txt # + trace one serve+score,
-                                                 # one train step and 10
+                                                 # one train step, 10
                                                  # steps each of phase 8's
-                                                 # and phase 9's OASIS
+                                                 # and phase 9's OASIS and
+                                                 # 16 graph-replayed ones
+                                                 # of phase 10's
 
 Phases (any failure ends the run with a non-zero exit):
   1. device: the card's name and power limit (nvidia-smi);
@@ -76,12 +78,28 @@ Phases (any failure ends the run with a non-zero exit):
      and each of the four ``FILTER_BENCH`` baselines on it (s/volume,
      SSIM/PSNR/VIF, the SSIM launches counted and held against the
      plain version); LPIPS of a [175, 220, 220] pair timed with CUDA
-     events, its peak memory, and card against CPU on 4 slices.
+     events, its peak memory, and card against CPU on 4 slices;
+ 10. the training loop's options, fit-latent-taps and the reference
+     checkpoints, on phase 8's trees: train-brain -d OASIS (cache on)
+     with ``--steps_per_dispatch 8`` (the train step captured in a CUDA
+     graph and replayed) for the MSE recipe and the perceptual default,
+     2 epochs each, ms/step beside phases 8 and 9's eager ms/step of the
+     same call; 8 replays of the captured full-width step against 8
+     eager steps from the same state and batches (limit 1e-6
+     relative); one epoch with ``--ema_decay 0.999 --profile_dir
+     --log_tensorboard`` (``ema.models`` through ``get_trainer('ema')``,
+     the trace file, the ``tb/`` event file when tensorboardX imports);
+     fit-latent-taps (300 steps) on phase 8's caisr checkpoint and the
+     validation patient, then ``create_hr_images`` with the fitted table
+     (SSIM launches counted, the kernel held against the plain version);
+     phase 8's caisr.models exported to the reference's torch format,
+     converted back, and the three served on the card (limit 1e-6).
 The main path (serve linear → score) runs with every kernel launch count
 set to 0 just before it and read just after; so do the train phase's
 path (serve the trained checkpoint → score), each find-best sweep of
-phase 7, phase 8's find-best and phase 9's scoring of the perceptual
-checkpoint and of the baselines. The line before the last lists every kernel with its check,
+phase 7, phase 8's find-best, phase 9's scoring of the perceptual
+checkpoint and of the baselines, and phase 10's scoring of the fitted
+table. The line before the last lists every kernel with its check,
 launches (``launches``: the main path; ``launches_by_path``: every
 counted path) and times; the last line is the device summary.
 """
@@ -146,6 +164,12 @@ AUG_ATOL = 1e-5
 # in other orders: 1.5e-5 at 220² on an H100 80GB HBM3 at 700 W; TF32
 # would give ~1e-3
 LPIPS_CARD_RTOL = 1e-4
+# phase 10: steps per dispatch of the graph-replayed runs; replays and
+# eager steps agree within GRAPH_RTOL (bitwise expected: the same
+# kernels); the fit's steps (the CLI's default)
+SPD = 8
+GRAPH_RTOL = 1e-6
+FIT_STEPS = 300
 
 
 def log(msg: str) -> None:
@@ -772,11 +796,13 @@ def make_disk_trees(root: str, seed: int) -> dict:
 
 def _train_timed(fn, argv, exper: str) -> dict:
     """Run a train command with a CUDA event recorded before every train
-    step; returns s/epoch (the gap between the numbered checkpoints),
-    ms/step (median of the gaps between consecutive steps of one epoch,
-    the first step of the run left out), each step's loss_ae, which
-    random draws the augmentation made, and which samplers the loop
-    used."""
+    step and every ``train_many`` dispatch; returns s/epoch (the gap
+    between the numbered checkpoints), ms/step (median of the gaps
+    between consecutive events of one epoch over the steps the earlier
+    one ran, the first event of the run left out: with
+    ``--steps_per_dispatch`` it carries the warm-up steps and the
+    capture), each step's loss_ae, which random draws the augmentation
+    made, and which samplers the loop used."""
     import torch
 
     from superresolution_aniso_mri_tpu_torch.cli import train_loop
@@ -784,14 +810,25 @@ def _train_timed(fn, argv, exper: str) -> dict:
     from superresolution_aniso_mri_tpu_torch.train import trainer as trainer_mod
 
     events, drawn, samplers, step_loss = [], set(), [], []
-    train, draw = trainer_mod.Trainer.train, transforms.draw_augment_params
+    cls = trainer_mod.Trainer
+    train, train_many = cls.train, cls.train_many
+    draw = transforms.draw_augment_params
     cache = train_loop.maybe_device_cache
 
-    def timed_train(self, batch):
+    def recorded(self, n):
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
-        events.append((self.epoch, ev))
+        events.append((self.epoch, ev, n))
+
+    def timed_train(self, batch):
+        recorded(self, 1)
         metrics = train(self, batch)
+        step_loss.append(metrics["loss_ae"].reshape(1))
+        return metrics
+
+    def timed_train_many(self, batches):
+        recorded(self, len(batches))
+        metrics = train_many(self, batches)
         step_loss.append(metrics["loss_ae"])
         return metrics
 
@@ -805,20 +842,20 @@ def _train_timed(fn, argv, exper: str) -> dict:
         samplers.append(type(out).__name__)
         return out
 
-    trainer_mod.Trainer.train = timed_train
+    cls.train, cls.train_many = timed_train, timed_train_many
     transforms.draw_augment_params = recorded_draw
     train_loop.maybe_device_cache = recorded_cache
     t0 = time.time()
     try:
         trainer = fn(argv)
     finally:
-        trainer_mod.Trainer.train = train
+        cls.train, cls.train_many = train, train_many
         transforms.draw_augment_params = draw
         train_loop.maybe_device_cache = cache
     wall = time.time() - t0
     torch.cuda.synchronize()
-    gaps = [a[1].elapsed_time(b[1]) for a, b in zip(events[1:], events[2:])
-            if a[0] == b[0]]
+    gaps = [a[1].elapsed_time(b[1]) / a[2]
+            for a, b in zip(events[1:], events[2:]) if a[0] == b[0]]
     epochs = sorted(int(f.split(".")[0]) for f in os.listdir(
         os.path.join(exper, "models")) if f.split(".")[0].isdigit())
     ends = [os.stat(os.path.join(exper, "models", f"{e}.models"))
@@ -828,12 +865,13 @@ def _train_timed(fn, argv, exper: str) -> dict:
         raise AssertionError(f"{exper}: losses are not finite: {loss}")
     return {"s_per_epoch": (ends[-1] - ends[0]) / max(len(ends) - 1, 1)
             if len(ends) > 1 else None,
-            "cli_s": wall, "steps": len(events),
+            "cli_s": wall, "steps": sum(e[2] for e in events),
+            "dispatches": len(events),
             "ms_per_step": float(np.median(gaps)),
             "ms_per_step_min": float(np.min(gaps)),
             "drawn": sorted(drawn), "samplers": samplers,
             "loss_ae": loss.tolist(), "trainer": trainer,
-            "step_loss_ae": torch.stack(step_loss).cpu().tolist()}
+            "step_loss_ae": torch.cat(step_loss).cpu().tolist()}
 
 
 def augment_timings(dev, gen_seed: int, card: str) -> dict:
@@ -888,15 +926,10 @@ def augment_timings(dev, gen_seed: int, card: str) -> dict:
     return out
 
 
-def profile_disk_steps(trainer, dev, path: str, steps: int = 10) -> None:
-    """Trace ``steps`` steps of ``trainer``'s recipe as ``run_training``
-    runs them (device slice cache, the random recipe, each batch made on
-    the training thread), after 5 untraced ones: device ms a step by
-    kernel kind and the idle share of the traced wall. The table goes to
-    ``path``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+def _recipe_batches(trainer, dev, epoch: int = 0):
+    """Device batches of ``trainer``'s recipe as ``run_training`` makes
+    them (device slice cache, the random recipe, each batch made on the
+    training thread), for epoch ``epoch``'s augmentation stream."""
     from superresolution_aniso_mri_tpu_torch.cli.train_loop import (
         build_augment_config, epoch_generator)
     from superresolution_aniso_mri_tpu_torch.data import (
@@ -910,17 +943,36 @@ def profile_disk_steps(trainer, dev, path: str, steps: int = 10) -> None:
         args["slice_selection"], pad_size=int(args["aug_patch_size"]),
         seed=int(args["seed"])), "1", dev)
     aug = build_augment_config(args)
-    gen = epoch_generator(int(args["seed"]), 0)
-    batches = (device_batch(raw, aug, dev, 2, generator=gen)
-               for raw in sampler.epoch_batches(int(args["batch_size"])))
-    for _ in range(5):
-        trainer.train(next(batches))
+    gen = epoch_generator(int(args["seed"]), epoch)
+    return (device_batch(raw, aug, dev, 2, generator=gen)
+            for raw in sampler.epoch_batches(int(args["batch_size"])))
+
+
+def profile_disk_steps(trainer, dev, path: str, steps: int = 10,
+                       spd: int = 1) -> None:
+    """Trace ``steps`` steps of ``trainer``'s recipe (``_recipe_batches``)
+    after 5 untraced ones, in dispatches of ``spd`` through
+    ``train_many`` when ``spd > 1``: device ms a step by kernel kind and
+    the idle share of the traced wall. The table goes to ``path``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    batches = _recipe_batches(trainer, dev)
+
+    def run(n):
+        if spd <= 1:
+            for _ in range(n):
+                trainer.train(next(batches))
+        else:
+            for _ in range(n // spd):
+                trainer.train_many([next(batches) for _ in range(spd)])
+
+    run(5 if spd <= 1 else spd)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            trainer.train(next(batches))
+        run(steps)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     events = prof.key_averages()
@@ -1350,6 +1402,258 @@ def check_perceptual(tmp: str, seed: int, card: str, dev, mse_ms: float,
     return out
 
 
+def _clone_state(state):
+    """A TrainState of the same values in tensors of its own."""
+    import copy
+
+    from superresolution_aniso_mri_tpu_torch.train import TrainState
+
+    opt = dataclasses.replace(
+        state.opt_state,
+        mu={k: v.clone() for k, v in state.opt_state.mu.items()},
+        nu={k: v.clone() for k, v in state.opt_state.nu.items()})
+    return TrainState(copy.deepcopy(state.model), state.tx, opt, state.step)
+
+
+def graph_vs_eager(trainer, dev, steps: int = SPD) -> dict:
+    """``steps`` replays of a train step captured for ``trainer``'s state
+    against as many eager steps from a copy of that state, on the same
+    recipe batches: the largest relative loss difference and the
+    parameters' max |Δ|. cuDNN's default backward algorithms may sum
+    with atomics (two eager runs differ in the last bits), so the
+    capture and both runs use ``cudnn.deterministic``: what is compared
+    is the dispatch, not cuDNN's summation order. The capture's warm-up
+    steps run first, on the trainer's state."""
+    import torch
+
+    from superresolution_aniso_mri_tpu_torch.train import (
+        make_multi_train_step, make_train_step, steps as steps_mod)
+
+    mix = trainer._mix_weight()
+    batches = _recipe_batches(trainer, dev, epoch=7)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    replays, replay = [], steps_mod._CapturedStep.replay
+
+    def counted(self, *a):
+        replays.append(1)
+        return replay(self, *a)
+
+    steps_mod._CapturedStep.replay = counted
+    try:
+        multi = make_multi_train_step(trainer.loss_config,
+                                      trainer.lpips_params, device=dev)
+        multi(trainer.state, [next(batches) for _ in range(
+            steps_mod.WARMUP_STEPS + 1)], mix)
+        run = [next(batches) for _ in range(steps)]
+        eager_state = _clone_state(trainer.state)
+        del replays[:]
+        _, got = multi(trainer.state, run, mix)
+        if len(replays) != steps:
+            raise AssertionError(f"{len(replays)} replays for {steps} "
+                                 f"steps: the captured step was not reused")
+        step = make_train_step(trainer.loss_config, trainer.lpips_params)
+        wants = [step(eager_state, b, mix)[1] for b in run]
+    finally:
+        steps_mod._CapturedStep.replay = replay
+        torch.backends.cudnn.deterministic = deterministic
+    loss_rel = 0.0
+    for i, want in enumerate(wants):
+        for k, v in want.items():
+            w, g = float(v), float(got[k][i])
+            loss_rel = max(loss_rel, abs(g - w) / max(abs(w), 1e-30))
+    param_abs = param_rel = 0.0
+    eager_sd = eager_state.model.state_dict()
+    for k, p in trainer.model.state_dict().items():
+        d = float((p - eager_sd[k]).abs().max())
+        param_abs = max(param_abs, d)
+        param_rel = max(param_rel, d / max(float(eager_sd[k].abs().max()),
+                                           1e-30))
+    return {"graph_vs_eager_loss_rel": loss_rel,
+            "graph_vs_eager_param_abs": param_abs,
+            "graph_vs_eager_param_rel": param_rel}
+
+
+def check_train_options(tmp: str, seed: int, card: str, dev, mse_ms: float,
+                        percept_ms: float, profile_path=None) -> dict:
+    """Phase 10 (see the module docstring), on phase 8's trees and
+    experiments in ``tmp``; returns the SSIM launches of the fitted
+    table's scoring and the phase's numbers."""
+    import shutil
+    import warnings
+
+    import torch
+
+    from superresolution_aniso_mri_tpu_torch.cli import entry
+    from superresolution_aniso_mri_tpu_torch.data.datasets import (
+        get_datasets)
+    from superresolution_aniso_mri_tpu_torch.evaluate import create_hr_images
+    from superresolution_aniso_mri_tpu_torch.infer import create_super_volume
+    from superresolution_aniso_mri_tpu_torch.ops import cuda_kernels
+    from superresolution_aniso_mri_tpu_torch.train import get_trainer
+    from superresolution_aniso_mri_tpu_torch.train.import_torch import (
+        is_torch_checkpoint)
+
+    out: dict = {}
+    spd = ["--steps_per_dispatch", str(SPD)]
+    # 1. --steps_per_dispatch 8: the OASIS recipe (MSE, cache on) and the
+    # perceptual default, beside phases 8 and 9's eager ms/step
+    runs = (("oasis_spd8", OASIS_ARGV, mse_ms),
+            ("oasis_percept_spd8", _without_mix_loss(OASIS_ARGV), percept_ms))
+    trainers = {}
+    for name, argv, eager_ms in runs:
+        exper = os.path.join(tmp, name)
+        res = _train_timed(entry.train_brain, argv + spd + [
+            "-o", tmp, "-id", name, "--device_data_cache", "auto"], exper)
+        trainers[name] = res["trainer"]
+        log(f"options {name}: " + json.dumps(
+            {k: v for k, v in res.items() if k not in ("trainer",
+                                                       "step_loss_ae")}))
+        if res["steps"] != res["trainer"].iters - 1 \
+                or not res["dispatches"] < res["steps"]:
+            raise AssertionError(f"{name}: {res['steps']} steps in "
+                                 f"{res['dispatches']} dispatches")
+        for k in ("ms_per_step", "ms_per_step_min", "s_per_epoch", "cli_s"):
+            out[f"{name}_{k}"] = res[k]
+        out[f"{name}_eager_ms_per_step"] = eager_ms
+        first, last = (float(np.mean(res["step_loss_ae"][sl]))
+                       for sl in (slice(0, 5), slice(-5, None)))
+        log(f"options: {name}_ms_per_step {res['ms_per_step']:.3f} beside "
+            f"the eager {eager_ms:.3f} of the same call "
+            f"({eager_ms / res['ms_per_step']:.2f}x) [{card}]; loss_ae, mean "
+            f"of the first 5 steps {first:.6f} → of the last 5 {last:.6f}")
+    if profile_path:
+        profile_disk_steps(trainers["oasis_spd8"], dev,
+                           profile_path + ".spd8.txt", steps=2 * SPD, spd=SPD)
+
+    # 2. 8 replays of the full-width recipe's captured step against 8
+    # eager steps from the same state and batches (after the profile:
+    # it takes the trainer's state further)
+    graph = graph_vs_eager(trainers["oasis_spd8"], dev)
+    out.update(graph)
+    log(f"options: graph vs eager, {SPD} steps of the OASIS recipe: max rel "
+        f"loss diff {graph['graph_vs_eager_loss_rel']:.3e}, max |Δ| of the "
+        f"parameters {graph['graph_vs_eager_param_abs']:.3e} (rel "
+        f"{graph['graph_vs_eager_param_rel']:.3e}; limit {GRAPH_RTOL} "
+        f"relative)")
+    if not (graph["graph_vs_eager_loss_rel"] <= GRAPH_RTOL
+            and graph["graph_vs_eager_param_rel"] <= GRAPH_RTOL):
+        raise AssertionError("the replayed step differs from the eager one")
+
+    # 3. one epoch with the EMA, the profiler trace and TensorBoard
+    name = "oasis_ema"
+    exper = os.path.join(tmp, name)
+    prof_dir = os.path.join(tmp, "prof")
+    res = _train_timed(entry.train_brain, _with_epochs(OASIS_ARGV, 1) + [
+        "-o", tmp, "-id", name, "--ema_decay", "0.999", "--profile_dir",
+        prof_dir, "--log_tensorboard"], exper)
+    ema = get_trainer(exper, model_nbr="ema")
+    live = res["trainer"]
+    with torch.no_grad():
+        ema_err = max(float((p - live.ema_params[k]).abs().max())
+                      for k, p in ema.state.params().items())
+        gap = max(float((p - live.state.params()[k]).abs().max())
+                  for k, p in ema.state.params().items())
+    traces = [os.path.join(prof_dir, f) for f in os.listdir(prof_dir)]
+    out["profile_trace_mb"] = sum(os.path.getsize(f) for f in traces) / 2**20
+    try:
+        import tensorboardX  # noqa: F401
+        tb_files = os.listdir(os.path.join(exper, "tb"))
+        tb = f"tb/ holds {tb_files}"
+    except ImportError as exc:
+        tb_files, tb = None, f"tensorboardX is not installed ({exc})"
+    log(f"options {name}: ema.models loads through get_trainer('ema'), max "
+        f"|Δ| to the trainer's EMA {ema_err:.3e}, to the live weights "
+        f"{gap:.3e}; trace {traces} ({out['profile_trace_mb']:.1f} MB); "
+        f"{tb}; {res['cli_s']:.1f} s")
+    if ema_err != 0.0 or not gap > 0.0 or len(traces) != 1 \
+            or not out["profile_trace_mb"] > 0 \
+            or (tb_files is not None and not any(
+                f.startswith("events.out.tfevents") for f in tb_files)):
+        raise AssertionError("EMA checkpoint, profiler trace or TensorBoard "
+                             "log missing")
+
+    # 4. fit-latent-taps on phase 8's experiment, then the fitted table
+    # scored on the validation volume, SSIM launches counted and held
+    # against the plain version on the pairs scored
+    exper = os.path.join(tmp, "oasis_cache")
+    t0 = time.perf_counter()
+    fit = entry.fit_latent_taps(["--exper_dir", exper, "--model_nbr",
+                                 "caisr", "--steps", str(FIT_STEPS)])
+    torch.cuda.synchronize()
+    out["fit_s"] = time.perf_counter() - t0
+    out.update(fit_loss_init=fit["loss_init"],
+               fit_loss_final=fit["loss_final"], fit_n_pairs=fit["n_pairs"])
+    table = os.path.join(exper, "models", "latent_taps.npz")
+    trainer = get_trainer(exper, "caisr")
+    val = get_datasets(trainer.args)[1][:1]
+    scored, restore = _kept_ssim_pairs()
+    try:
+        cuda_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        fitted = create_hr_images(trainer, val, OASIS_DS,
+                                  latent_interp=f"fitted:{table}")
+        torch.cuda.synchronize()
+        out["fitted_create_hr_images_s"] = time.perf_counter() - t0
+        out["fitted_launches"] = cuda_kernels.LAUNCHES["ssim_slice"]
+    finally:
+        restore()
+    out["fitted_kernel_err"] = check_kept_pairs(scored, "phase 10 fitted")
+    lanczos = create_hr_images(trainer, val, OASIS_DS,
+                               latent_interp="lanczos3")
+    rows = {m: {k: r["aggregate"][k][0] for k in ("ssim", "psnr")}
+            for m, r in (("fitted", fitted), ("lanczos3", lanczos))}
+    log(f"options fit-latent-taps: {fit['n_pairs']} pairs, holdout MSE "
+        f"{fit['loss_init']:.6f} → {fit['loss_final']:.6f} in "
+        f"{out['fit_s']:.2f} s; create_hr_images fitted "
+        f"{out['fitted_create_hr_images_s']:.3f} s, "
+        f"{out['fitted_launches']} SSIM launch; scores "
+        f"{json.dumps(rows)} [{card}]")
+    if not (np.isfinite(fit["loss_final"])
+            and fit["loss_final"] <= fit["loss_init"]
+            and out["fitted_launches"] == 1
+            and all(np.isfinite(v) for r in rows.values()
+                    for v in r.values())):
+        raise AssertionError("fit-latent-taps or its scoring failed")
+
+    # 5. phase 8's caisr.models exported to the reference format,
+    # converted back, and all three served on the card
+    ref, conv = os.path.join(tmp, "ref_exper"), os.path.join(tmp, "conv")
+    os.makedirs(os.path.join(ref, "models"))
+    shutil.copy2(os.path.join(exper, "settings.yaml"), ref)
+    entry.export_reference_checkpoint([
+        "--exper_dir", exper, "--model_nbr", "caisr", "--out",
+        os.path.join(ref, "models", "caisr.models")])
+    entry.convert_reference_checkpoint(["--exper_dir", ref, "--output_dir",
+                                        conv])
+    if not is_torch_checkpoint(os.path.join(ref, "models", "caisr.models")) \
+            or is_torch_checkpoint(os.path.join(conv, "models",
+                                                "caisr.models")):
+        raise AssertionError("the reference export or the conversion did "
+                             "not write its format")
+    vol = np.asarray(val[0].image, np.float32)
+    serve = dict(alpha_range=np.linspace(0, 1, OASIS_DS + 1)[1:-1],
+                 downsample_steps=OASIS_DS, use_original=False,
+                 generate_inbetween_slices=True)
+    served = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # the stem-geometry note
+        for name, src in (("original", exper), ("reference", ref),
+                          ("converted", conv)):
+            served[name] = create_super_volume(
+                get_trainer(src, "caisr"), vol, **serve)["upsampled_image"]
+    out["reference_roundtrip_max_abs"] = max(
+        float(np.abs(served[k] - served["original"]).max())
+        for k in ("reference", "converted"))
+    log(f"options reference checkpoints: caisr.models → reference torch → "
+        f"SRTPU1, served {served['original'].shape} on the card: max |Δ| "
+        f"{out['reference_roundtrip_max_abs']:.3e} (limit 1e-6)")
+    if not out["reference_roundtrip_max_abs"] <= 1e-6:
+        raise AssertionError("the converted checkpoints serve differently")
+    log(f"options timings [{card}]: " + json.dumps(out))
+    return out
+
+
 def _kernel_kind(name: str) -> str:
     """Bucket of a device event by its kernel name."""
     low = name.lower()
@@ -1592,12 +1896,16 @@ def main() -> int:
 
     # ---- 8. production recipes from disk -----------------------------
     # ---- 9. perceptual and SSIM losses, LPIPS, baselines --------------
+    # ---- 10. the training loop's options, fit-latent-taps, reference ---
     with disk_trees(args.seed) as (tmp, fabricate_s):
         disk = check_disk_recipes(tmp, args.seed, card, dev, args.profile)
         disk["fabricate_s"] = fabricate_s
         percept = check_perceptual(tmp, args.seed, card, dev,
                                    disk["oasis_cache_ms_per_step"],
                                    args.profile)
+        options = check_train_options(
+            tmp, args.seed, card, dev, disk["oasis_cache_ms_per_step"],
+            percept["oasis_percept_ms_per_step"], args.profile)
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)  # name and power limit, as nvidia-smi prints them
@@ -1616,10 +1924,12 @@ def main() -> int:
                 percept["percept_create_hr_images_launches"],
             "baselines_create_hr_images": sum(
                 row["launches"] for name, row in percept["baselines"].items()
-                if name != "model")},
+                if name != "model"),
+            "fitted_create_hr_images": options["fitted_launches"]},
         "max_abs_err": max(kcheck["max_abs_err"],
                            disk["find_best_kernel_err"],
-                           percept["percept_kernel_err"]), "ok": True,
+                           percept["percept_kernel_err"],
+                           options["fitted_kernel_err"]), "ok": True,
         "ms": kernel_ms, "ms_cold": kernel_cold_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "bound_share": bound_ms / kernel_ms,

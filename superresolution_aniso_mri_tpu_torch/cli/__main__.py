@@ -4,8 +4,10 @@
 
 with the commands of the JAX package's root scripts (same flags):
 train-brain, train-cardiac, generate-hr-volumes, serve-hr-volumes,
-find-best-model, fit-latent-taps (not ported: exits with a message).
-Exits 0 on success, as the JAX package's console scripts do.
+find-best-model, fit-latent-taps, and the JAX package's tools
+convert-reference-checkpoint (a reference torch experiment → SRTPU1)
+and export-reference-checkpoint (a checkpoint → a reference torch
+.models). Exits 0 on success, as the JAX package's console scripts do.
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ COMMANDS = {
     "serve-hr-volumes": entry.serve_hr_volumes,
     "find-best-model": entry.find_best_model,
     "fit-latent-taps": entry.fit_latent_taps,
+    "convert-reference-checkpoint": entry.convert_reference_checkpoint,
+    "export-reference-checkpoint": entry.export_reference_checkpoint,
 }
 
 

@@ -1,4 +1,5 @@
-"""The experiment-directory commands: train, generate, serve, find-best.
+"""The experiment-directory commands: train, generate, serve, find-best,
+fit-latent-taps, and the reference-checkpoint converters.
 
 Port of ``superresolution_aniso_mri_tpu/cli/entry.py``, with the same
 flags, prints and return values, reading and writing the same
@@ -11,8 +12,10 @@ archives, ``log_images/``, ``model_perf_ds<k>.npz``) and the same
 (``cli/__main__.py``). Training runs on ``--device`` (``cuda`` unless it
 says ``cpu``); the other commands' functions take ``device`` (None: the
 CUDA device). Without a card, and unless the CPU is asked for, every
-command raises ``device.resolve_device``'s error. ``fit_latent_taps`` is
-not ported (ROADMAP item 14).
+command raises ``device.resolve_device``'s error. ``fit_latent_taps``
+fits the learned latent tap table, and ``convert_reference_checkpoint``
+/ ``export_reference_checkpoint`` read and write the reference's torch
+checkpoints (the JAX package's ``tools/`` scripts of those names).
 """
 from __future__ import annotations
 
@@ -498,12 +501,165 @@ def find_best_model(argv=None, device=None):
 
 
 def fit_latent_taps(argv=None, device=None):
-    """Not ported: fitting the learned latent tap table needs the JAX
-    package's optimizer loop (``infer/latent_taps.py::fit_latent_taps``,
-    ROADMAP item 14, split out of item 10). A table that JAX fitted
-    serves in the port with ``--latent_interp fitted``."""
-    raise SystemExit(
-        "fit-latent-taps is not ported to the PyTorch package yet (ROADMAP "
-        "item 14, from item 10); fit the table with the JAX package's "
-        "fit_latent_taps.py, then serve it here with --latent_interp "
-        "fitted")
+    """Reference: the JAX package's ``cli/entry.py::fit_latent_taps`` —
+    fit the learned per-alpha latent tap table on the validation split
+    (``infer/latent_taps.py``) and save it next to the checkpoints as
+    ``<exper>/models/latent_taps.npz``; serve it with ``--latent_interp
+    fitted``. Returns the fit's result dict."""
+    from ..config.settings import load_settings
+    from ..data.datasets import get_datasets
+    from ..infer.latent_taps import fit_latent_taps as _fit
+    from ..infer.latent_taps import save_latent_taps
+    from ..train import get_trainer
+
+    parser = argparse.ArgumentParser(
+        description="Fit learned latent tap weights on the val split")
+    parser.add_argument("--exper_dir", type=str, required=True)
+    parser.add_argument("--model_nbr", type=str, default="caisr",
+                        help="checkpoint to fit against — use the one "
+                             "you will serve (epoch number, 'caisr', "
+                             "'ae' or 'ema')")
+    parser.add_argument("--downsample_steps", type=int, default=None)
+    parser.add_argument("--limited_load", action="store_true")
+    parser.add_argument("--use_synthetic_data", action="store_true")
+    parser.add_argument("--steps", type=int, default=300)
+    parser.add_argument("--lr", type=float, default=0.02)
+    parser.add_argument("--batch_pairs", type=int, default=16)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--l2_to_init", type=float, default=0.0,
+                        help="trust-region penalty toward the lanczos3 "
+                             "init (lambda * ||W - W0||^2): damps "
+                             "overfitting to a small validation split")
+    parser.add_argument("--holdout_frac", type=float, default=0.2,
+                        help="fraction of fitting pairs held out to "
+                             "gate weight selection (the returned table "
+                             "is the best-holdout candidate, analytic "
+                             "init included); 0 disables")
+    args = parser.parse_args(argv)
+    dev = resolve_device(device)
+
+    exper_dir = os.path.expanduser(args.exper_dir)
+    settings = load_settings(os.path.join(exper_dir, "settings.yaml"))
+    if args.limited_load:
+        settings["limited_load"] = True
+    if args.use_synthetic_data:
+        settings["use_synthetic_data"] = True
+    ds = (args.downsample_steps if args.downsample_steps is not None
+          else int(settings.get("downsample_steps") or 2))
+    if ds < 2:
+        raise SystemExit(f"--downsample_steps must be >= 2, got {ds}")
+    settings["downsample_steps"] = ds
+    _train, val = get_datasets(settings)
+
+    model_nbr = _model_nbr(args.model_nbr)
+    trainer = get_trainer(exper_dir, model_nbr=model_nbr, eval_mode=True,
+                          device=dev)
+    res = _fit(trainer, val, ds, steps=args.steps, lr=args.lr,
+               batch_pairs=args.batch_pairs, seed=args.seed,
+               l2_to_init=args.l2_to_init,
+               holdout_frac=args.holdout_frac, verbose=True)
+    out = os.path.join(exper_dir, "models", "latent_taps.npz")
+    save_latent_taps(out, res["offsets"], res["alphas"], res["weights"],
+                     meta={"downsample_steps": ds,
+                           "model_nbr": str(model_nbr),
+                           "loss_init": res["loss_init"],
+                           "loss_final": res["loss_final"],
+                           "n_pairs": res["n_pairs"]})
+    gain = (1.0 - res["loss_final"] / res["loss_init"]
+            if res["loss_init"] > 0 else 0.0)
+    print(f"fitted {res['weights'].shape} tap table on "
+          f"{res['n_pairs']} pairs: val synthesis MSE "
+          f"{res['loss_init']:.6f} → {res['loss_final']:.6f} "
+          f"({100 * gain:.1f}% lower than lanczos3 init)")
+    print(f"saved {out} — serve with --latent_interp fitted")
+    return res
+
+
+def convert_reference_checkpoint(argv=None, device=None):
+    """Reference: ``tools/convert_reference_checkpoint.py`` — rewrite a
+    reference experiment's torch ``.models`` checkpoints as ``SRTPU1``
+    files (optimizer moments fresh). In place, each original is kept as
+    ``<name>.models.torch``; with ``--output_dir`` the settings and loss
+    archives are copied beside the converted files. Returns the number
+    of files converted."""
+    import shutil
+
+    from ..config.settings import load_settings, save_experiment_settings
+    from ..train import Trainer
+    from ..train.checkpoint import save_checkpoint
+    from ..train.import_torch import is_torch_checkpoint, load_torch_reference
+
+    p = argparse.ArgumentParser(
+        description="Convert reference torch checkpoints to SRTPU1")
+    p.add_argument("--exper_dir", required=True,
+                   help="reference experiment dir (settings.yaml + models/)")
+    p.add_argument("--output_dir", default=None,
+                   help="destination experiment dir (default: convert "
+                        "in place, writing <name>.models alongside with "
+                        "the originals preserved as <name>.models.torch)")
+    p.add_argument("--files", nargs="*", default=None,
+                   help="specific checkpoint filenames under models/ "
+                        "(default: all *.models)")
+    args = p.parse_args(argv)
+
+    src = os.path.expanduser(args.exper_dir)
+    settings = load_settings(os.path.join(src, "settings.yaml"))
+    settings["output_dir"] = None       # no experiment-dir side effects
+    settings.pop("device", None)        # the reference's own key
+    trainer = Trainer(settings, eval_mode=True, device=device)
+    names = args.files or sorted(
+        os.path.basename(f)
+        for f in glob.glob(os.path.join(src, "models", "*.models")))
+    if not names:
+        raise SystemExit(f"no *.models files under {src}/models")
+    dst = os.path.expanduser(args.output_dir) if args.output_dir else src
+    os.makedirs(os.path.join(dst, "models"), exist_ok=True)
+    n_done = 0
+    for name in names:
+        fsrc = os.path.join(src, "models", name)
+        if not is_torch_checkpoint(fsrc):
+            print(f"skip {name}: already SRTPU1")
+            continue
+        state, epoch = load_torch_reference(fsrc, trainer.state)
+        fdst = os.path.join(dst, "models", name)
+        if os.path.abspath(fdst) == os.path.abspath(fsrc):
+            os.replace(fsrc, fsrc + ".torch")
+        save_checkpoint(fdst, state, epoch)
+        print(f"converted {name} (epoch {epoch})")
+        n_done += 1
+    if os.path.abspath(dst) != os.path.abspath(src):
+        save_experiment_settings(settings,
+                                 os.path.join(dst, "settings.yaml"))
+        for aux in ("loss_iters.npz", "losses_train.npz",
+                    "losses_test.npz"):
+            if os.path.isfile(os.path.join(src, aux)):
+                shutil.copy2(os.path.join(src, aux), os.path.join(dst, aux))
+    print(f"done: {n_done} checkpoint(s) converted into {dst}")
+    return n_done
+
+
+def export_reference_checkpoint(argv=None, device=None):
+    """Reference: ``tools/export_reference_checkpoint.py`` — write an
+    experiment's checkpoint as a reference-loadable torch ``.models``
+    (the original PyTorch code's Sequential state dict and a fresh Adam
+    state); the architecture comes from settings.yaml."""
+    from ..train import get_trainer
+    from ..train.export_torch import save_reference_checkpoint
+
+    p = argparse.ArgumentParser(
+        description="Export a checkpoint to the reference torch format")
+    p.add_argument("--exper_dir", type=str, required=True)
+    p.add_argument("--model_nbr", type=str, default="caisr",
+                   help="epoch number or 'ae'/'caisr'/'last'")
+    p.add_argument("--out", type=str, required=True,
+                   help="output .models path (torch pickle)")
+    args = p.parse_args(argv)
+
+    trainer = get_trainer(os.path.expanduser(args.exper_dir),
+                          model_nbr=_model_nbr(args.model_nbr),
+                          eval_mode=True, device=device)
+    save_reference_checkpoint(
+        os.path.expanduser(args.out), trainer.model,
+        epoch=int(trainer.epoch or 0),
+        lr=float(trainer.args.get("lr", 0.0001) or 0.0001))
+    print(f"exported {args.exper_dir} [{args.model_nbr}] -> {args.out}")

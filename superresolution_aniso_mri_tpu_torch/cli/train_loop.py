@@ -19,13 +19,21 @@ augmentations draw from one CPU ``torch.Generator`` per epoch, seeded
 from ``(seed, epoch)``, so a resumed run redraws the stream of the
 epoch it resumes.
 
+``--steps_per_dispatch N`` (N > 1) buffers N batches and runs them
+through ``Trainer.train_many`` (a CUDA graph replayed per step on the
+card), the epoch's remainder through ``Trainer.train``.
+``--profile_dir`` records a ``torch.profiler`` trace of the first epoch
+run; ``--log_tensorboard`` also logs the image grid and, every 10
+epochs, the parameter histograms.
+
 Not ported, and raising before anything is written: loss masks
 (``--get_masks``, ROADMAP item 9), MNISTRoto's on-the-fly sampler (item
-15), ``--profile_dir`` (item 16), multi-host runs (item 11), and what
-``Trainer`` and ``get_datasets`` refuse.
+15), multi-host runs (item 11), and what ``Trainer`` and
+``get_datasets`` refuse.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Dict
@@ -39,6 +47,7 @@ from ..data.datasets import get_datasets
 from ..data.device_cache import maybe_device_cache
 from ..train import Trainer
 from ..utils.grids import generate_recon_grid, save_image_grid
+from ..utils.profiling import trace
 
 
 def build_augment_config(args: Dict) -> AugmentConfig:
@@ -99,10 +108,6 @@ def epoch_generator(seed: int, epoch: int) -> torch.Generator:
 
 def _refuse_unported(merged: Dict) -> None:
     """Raise for the options of the JAX loop the port does not run."""
-    if merged.get("profile_dir"):
-        raise NotImplementedError(
-            "--profile_dir: the profiler trace of the training loop is not "
-            "ported yet (ROADMAP item 16)")
     if merged["dataset"] == "MNISTRoto":
         raise NotImplementedError(
             "MNISTRoto: the on-the-fly rotation-triplet sampler is not "
@@ -225,16 +230,34 @@ def run_training(args_dict: Dict, verbose: bool = True) -> Trainer:
         if watchdog is not None:
             watchdog.beat()
 
+    profile_dir = merged.get("profile_dir")
+    start_epoch = trainer.epoch
+    spd = int(merged.get("steps_per_dispatch", 1) or 1)
     try:
         for epoch in range(trainer.epoch, epochs):
             t0 = time.time()
             last_batch = None
             gen = epoch_generator(seed, epoch)
-            for raw in sampler.epoch_batches(batch_size):
-                last_batch = device_batch(raw, aug_cfg, dev, latent_taps,
-                                          generator=gen)
-                trainer.train(last_batch)
-                _beat()
+            # --profile_dir: a torch.profiler trace of the first epoch run
+            prof = (trace(profile_dir, dev) if profile_dir
+                    and epoch == start_epoch else contextlib.nullcontext())
+            with prof:
+                buf = []
+                for raw in sampler.epoch_batches(batch_size):
+                    last_batch = device_batch(raw, aug_cfg, dev,
+                                              latent_taps, generator=gen)
+                    if spd <= 1:
+                        trainer.train(last_batch)
+                        _beat()
+                        continue
+                    buf.append(last_batch)
+                    if len(buf) == spd:
+                        trainer.train_many(buf)
+                        _beat()
+                        buf = []
+                for batch in buf:  # the epoch's remainder
+                    trainer.train(batch)
+                    _beat()
             # end-of-epoch validation over several batches, so best-model
             # selection averages a real estimate
             n_val = int(merged.get("num_val_batches", 4) or 4)
@@ -269,10 +292,13 @@ def run_training(args_dict: Dict, verbose: bool = True) -> Trainer:
                     .cpu().numpy())
                 save_image_grid(grid, os.path.join(
                     trainer.dir_images, f"val_recons_e{epoch:03d}.png"))
+                trainer.log_tb_image("val/reconstructions", grid)
                 _beat()
 
             _generate_volume_previews(trainer, val_vols, merged, epoch)
             _beat()
+            if merged.get("log_tensorboard") and epoch % 10 == 0:
+                trainer.log_tb_histograms()
             trainer.reset_losses()
             trainer.end_epoch_processing()
             _beat()
@@ -288,4 +314,7 @@ def run_training(args_dict: Dict, verbose: bool = True) -> Trainer:
     finally:
         if watchdog is not None:
             watchdog.stop()
+        if trainer.tb_writer is not None:
+            trainer.tb_writer.close()
+            trainer.tb_writer = None
     return trainer

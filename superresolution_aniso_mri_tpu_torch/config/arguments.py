@@ -96,8 +96,10 @@ def parse_args(argv=None):
     # TPU-rebuild extensions: multi-batch validation + preview cadence
     parser.add_argument("--num_val_batches", type=int, default=4)
     parser.add_argument("--steps_per_dispatch", type=int, default=1,
-                        help="optimizer steps scanned inside one device "
-                             "program (amortizes per-dispatch transport)")
+                        help="optimizer steps per dispatch: the train "
+                             "step is captured once in a CUDA graph and "
+                             "replayed for each of the N batches (the "
+                             "same trajectory as N single steps)")
     parser.add_argument("--device_data_cache", type=str, default="auto",
                         choices=["auto", "0", "1"],
                         help="keep the padded slice stacks resident in "
@@ -110,9 +112,9 @@ def parse_args(argv=None):
                         help="continue from the newest numbered checkpoint "
                              "in the experiment dir (elastic restarts)")
     parser.add_argument("--profile_dir", type=str, default=None,
-                        help="record a profiler trace of the first "
-                             "epoch into this directory (not ported: "
-                             "ROADMAP item 10)")
+                        help="record a torch.profiler trace (CPU, and "
+                             "CUDA on a card) of the first epoch run into "
+                             "this directory, as a Chrome trace file")
     parser.add_argument("--step_timeout_s", type=float, default=0,
                         help="stall watchdog: exit with status 75 "
                              "(EX_TEMPFAIL) when no train/val step "

@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import contextlib
+import functools
 import warnings
 
 import torch
@@ -17,6 +18,17 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "port on the CPU")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def device_constant(values: tuple, dtype: torch.dtype,
+                    device: torch.device) -> torch.Tensor:
+    """The tensor of ``values``, uploaded once per dtype and device and
+    shared by every caller, which must not write to it. A train step
+    captured in a CUDA graph (``train/steps.py``) may not copy from the
+    host, so the step's constants come from here: the eager warm-up
+    steps before the capture make them."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 @contextlib.contextmanager

@@ -12,6 +12,8 @@ from typing import List
 import torch
 import torch.nn.functional as F
 
+from ..device import device_constant
+
 _K1D = (1.0, 4.0, 6.0, 4.0, 1.0)
 
 
@@ -19,7 +21,7 @@ def _blur(x: torch.Tensor, gain: float = 1.0) -> torch.Tensor:
     """Depthwise 5x5 binomial blur with reflect padding, as a 5x1 then a
     1x5 convolution."""
     c = x.shape[1]
-    k = torch.tensor(_K1D, dtype=x.dtype, device=x.device) / 16.0
+    k = device_constant(_K1D, x.dtype, x.device) / 16.0
     x = F.pad(x, (2, 2, 2, 2), mode="reflect")
     x = F.conv2d(x, k.view(1, 1, 5, 1).repeat(c, 1, 1, 1), groups=c)
     x = F.conv2d(x, k.view(1, 1, 1, 5).repeat(c, 1, 1, 1), groups=c)

@@ -13,6 +13,8 @@ from typing import Optional
 
 import torch
 
+from ..device import device_constant
+
 
 def mse(pred: torch.Tensor, target: torch.Tensor,
         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -54,7 +56,7 @@ def lanczos3_weights(alphas: torch.Tensor) -> torch.Tensor:
     """[...] fractional positions → [..., 6] normalised lanczos (radius
     3) weights over taps at ``LANCZOS3_OFFSETS``; a delta at t=0 / t=1."""
     t = alphas[..., None]
-    x = torch.tensor(LANCZOS3_OFFSETS, dtype=t.dtype, device=t.device) - t
+    x = device_constant(LANCZOS3_OFFSETS, t.dtype, t.device) - t
     r = 3.0
     px = math.pi * torch.where(x == 0, torch.full_like(x, 1e-12), x)
     w = torch.where(x.abs() < r,

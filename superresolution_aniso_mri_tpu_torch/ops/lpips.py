@@ -35,7 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..device import f32_exact, resolve_device
+from ..device import device_constant, f32_exact, resolve_device
 from ..models.config import _DTYPES
 
 # VGG16 conv plan: (out_channels per conv, pool before this conv?)
@@ -50,8 +50,8 @@ _VGG_PLAN: Sequence[tuple] = (
 _SLICE_ENDS = (1, 3, 6, 9, 12)
 LPIPS_CHANNELS = (64, 128, 256, 512, 512)
 
-_SHIFT = np.array([-0.030, -0.088, -0.188], np.float32)
-_SCALE = np.array([0.458, 0.448, 0.450], np.float32)
+_SHIFT = (-0.030, -0.088, -0.188)
+_SCALE = (0.458, 0.448, 0.450)
 
 
 def init_lpips_params(seed: int = 0, lin_init: str = "uniform") -> Dict[str, Any]:
@@ -268,8 +268,8 @@ def lpips_distance(params: Dict[str, Any], in0: torch.Tensor,
     if normalize:
         in0 = 2.0 * in0 - 1.0
         in1 = 2.0 * in1 - 1.0
-    shift = torch.as_tensor(_SHIFT, device=in0.device).view(1, 3, 1, 1)
-    scale = torch.as_tensor(_SCALE, device=in0.device).view(1, 3, 1, 1)
+    shift = device_constant(_SHIFT, torch.float32, in0.device).view(1, 3, 1, 1)
+    scale = device_constant(_SCALE, torch.float32, in0.device).view(1, 3, 1, 1)
     # a [B, 1, H, W] input is [B, 3, H, W] after this line, exactly the
     # reference ScalingLayer's [1, 3, 1, 1] broadcast
     in0 = (in0 - shift) / scale

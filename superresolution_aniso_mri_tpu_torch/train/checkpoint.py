@@ -6,15 +6,16 @@ blob of ``{"model_dict_ae", "optimizer_dict_ae", "batch_stats",
 "epoch"}`` (flax names and layouts, ``models/convert.py``; the optimizer
 as the optax state's flax state dict, ``train/state.py``; the epoch a
 0-d int64 array), written to ``<path>.tmp`` and renamed into place. So a
-checkpoint of either package loads in the other. The JAX package's
-reading of the reference's torch pickles is not ported.
+checkpoint of either package loads in the other. ``load_checkpoint``
+also reads the reference's torch pickles (``train/import_torch.py``),
+whose optimizer moments restart fresh.
 """
 from __future__ import annotations
 
 import os
 import struct
 import warnings
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,6 +23,7 @@ import torch
 from ..models import flax_to_torch
 from ..models.convert import torch_to_flax
 from . import msgpack
+from .import_torch import is_torch_checkpoint, load_torch_reference
 from .state import AdamState, TrainState
 
 _MAGIC = b"SRTPU1\x00\x00"
@@ -44,10 +46,14 @@ def _to_host(groups):
     return out
 
 
-def save_checkpoint(path: str, state: TrainState, epoch: int) -> None:
-    """Write the model, optimizer state and ``epoch`` of ``state``."""
+def save_checkpoint(path: str, state: TrainState, epoch: int,
+                    params: Optional[Dict[str, torch.Tensor]] = None) -> None:
+    """Write the model, optimizer state and ``epoch`` of ``state``;
+    ``params`` (e.g. the EMA weights) replace the model's parameters of
+    the same names."""
     st = state.opt_state
-    sd, mu, nu = _to_host([state.model.state_dict(), st.mu, st.nu])
+    sd = {**state.model.state_dict(), **(params or {})}
+    sd, mu, nu = _to_host([sd, st.mu, st.nu])
     params, batch_stats = torch_to_flax(sd)
     payload = {
         "model_dict_ae": params,
@@ -70,8 +76,13 @@ def load_checkpoint_raw(path: str) -> Dict[str, Any]:
     """The checkpoint's tree: nested dicts of numpy arrays."""
     with open(path, "rb") as f:
         if f.read(8) != _MAGIC:
-            raise ValueError(f"{path}: not a SRTPU checkpoint (reference "
-                             f"torch checkpoints are not read by the port)")
+            if is_torch_checkpoint(path):
+                raise ValueError(
+                    f"{path}: not a SRTPU checkpoint but a reference-format "
+                    f"torch checkpoint — load it through load_checkpoint() "
+                    f"/ Trainer.load() (detected there) or convert it with "
+                    f"the port's convert-reference-checkpoint command")
+            raise ValueError(f"{path}: not a SRTPU checkpoint")
         (n,) = struct.unpack("<q", f.read(8))
         blob = f.read(n)
     return msgpack.unpackb(blob)
@@ -82,7 +93,10 @@ def load_checkpoint(path: str, state: TrainState) -> Tuple[TrainState, int]:
     ``path`` into ``state`` (in place); returns ``(state, epoch)``. An
     optimizer layout that differs from ``state``'s (another chain or
     schedule) restores the weights only and keeps ``state``'s own
-    optimizer state, with a warning."""
+    optimizer state, with a warning. A reference torch pickle restores
+    the weights and BatchNorm statistics only."""
+    if is_torch_checkpoint(path):
+        return load_torch_reference(path, state)
     raw = load_checkpoint_raw(path)
     model = state.model
     sd = flax_to_torch(raw["model_dict_ae"], raw.get("batch_stats", {}),

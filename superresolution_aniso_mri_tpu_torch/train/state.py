@@ -32,6 +32,14 @@ B2 = 0.999
 EPS = 1e-8
 
 
+def scalar_tensor(values, device) -> torch.Tensor:
+    """Host floats as a float32 tensor on ``device``, copied without a
+    host sync: a pageable host buffer is staged by the copy itself
+    before it returns, so nothing waits for the device."""
+    return torch.tensor(values, dtype=torch.float32).to(device,
+                                                        non_blocking=True)
+
+
 class Schedule:
     """optax's ``constant`` / ``cosine_decay_schedule(alpha=0)`` /
     ``linear_schedule(0 → lr)`` / ``warmup_cosine_decay_schedule(0 → lr →
@@ -106,10 +114,32 @@ class Optimizer:
                           torch.full_like(norm, self.max_grad_norm))
         return torch._foreach_mul(torch._foreach_div(grads, div), mul)
 
+    def host_scalars(self, state: AdamState) -> List[float]:
+        """``[c1, c2, lr]`` of the next update: the bias corrections
+        ``1 - b ** count`` in float32 at the advanced count, as optax
+        computes them, and the schedule's rate at the count BEFORE the
+        update."""
+        count = np.float32(state.count + 1)
+        return [float(np.float32(1) - np.float32(self.b1) ** count),
+                float(np.float32(1) - np.float32(B2) ** count),
+                self.schedule(state.schedule_count or 0)]
+
+    @staticmethod
+    def advance(state: AdamState) -> None:
+        """The host counts of one update."""
+        state.count += 1
+        if state.schedule_count is not None:
+            state.schedule_count += 1
+
     @torch.no_grad()
-    def step(self, params: Dict[str, torch.Tensor],
-             grads: Dict[str, torch.Tensor], state: AdamState) -> None:
-        """One update of ``params`` in place; ``state`` advances."""
+    def apply(self, params: Dict[str, torch.Tensor],
+              grads: Dict[str, torch.Tensor], state: AdamState,
+              scalars: torch.Tensor) -> None:
+        """One update of ``params`` and the moments in place, reading
+        ``scalars`` (a float32 tensor on their device that starts with
+        ``host_scalars(state)``). Device work only: it neither syncs with
+        the host nor advances the counts, so a CUDA graph can capture it
+        and replay it with new ``scalars``."""
         names = list(params)
         p = [params[k] for k in names]
         g = [grads[k] for k in names]
@@ -126,18 +156,19 @@ class Optimizer:
         torch._foreach_mul_(nu, B2)
         torch._foreach_add_(nu, torch._foreach_mul(
             torch._foreach_mul(g, g), 1.0 - B2))
-        count = state.count + 1
-        # bias corrections in float32, as optax computes b ** count
-        c1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
-        c2 = float(np.float32(1) - np.float32(B2) ** np.float32(count))
+        c1, c2, lr = scalars[0], scalars[1], scalars[2]
         denom = torch._foreach_sqrt(torch._foreach_div(nu, c2))
         torch._foreach_add_(denom, EPS)
         upd = torch._foreach_div(torch._foreach_div(mu, c1), denom)
-        lr = self.schedule(state.schedule_count or 0)
-        torch._foreach_add_(p, torch._foreach_mul(upd, -lr))
-        state.count = count
-        if state.schedule_count is not None:
-            state.schedule_count += 1
+        torch._foreach_sub_(p, torch._foreach_mul(upd, lr))
+
+    def step(self, params: Dict[str, torch.Tensor],
+             grads: Dict[str, torch.Tensor], state: AdamState) -> None:
+        """One update of ``params`` in place; ``state`` advances."""
+        device = next(iter(params.values())).device
+        self.apply(params, grads, state,
+                   scalar_tensor(self.host_scalars(state), device))
+        self.advance(state)
 
     def opt_state_tree(self, state: AdamState) -> dict:
         """The flax state dict of the optax chain's state: the chain's

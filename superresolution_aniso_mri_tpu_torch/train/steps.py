@@ -32,7 +32,7 @@ keys; ``loss_ae_dist_extra`` is logged weighted by ``mix_weight``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -43,7 +43,7 @@ from ..ops.losses import latent_mix, latent_mix_cubic, latent_mix_lanczos3, mse
 from ..ops.lpips import lpips_distance
 from ..ops.metrics import ssim_volume
 from ..ops.perceptual import enc_lpips_distance
-from .state import TrainState
+from .state import TrainState, scalar_tensor
 
 Batch = Dict[str, torch.Tensor]
 
@@ -232,26 +232,155 @@ def _ae_losses(model: VanillaACAI, cfg: LossConfig, lpips_params: Any,
     return loss_ae, {k: v.detach() for k, v in metrics.items()}
 
 
+def _update(state: TrainState, cfg: LossConfig, lpips_params: Any,
+            batch: Batch, scalars: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Forward, backward and the optimizer update of one step, in place
+    on ``state``'s tensors; ``scalars`` is the device tensor ``[c1, c2,
+    lr, mix_weight]`` (``Optimizer.host_scalars`` and the synthesis-loss
+    weight). Device work only, so a CUDA graph can capture it."""
+    params = state.params()
+    loss, metrics = _ae_losses(state.model, cfg, lpips_params, batch,
+                               scalars[3])
+    grads = torch.autograd.grad(loss, list(params.values()))
+    state.tx.apply({k: p.data for k, p in params.items()},
+                   dict(zip(params, grads)), state.opt_state, scalars)
+    return metrics
+
+
+def _scalar_rows(state: TrainState, mix_weight, n: int) -> List[List[float]]:
+    """The ``scalars`` of the next ``n`` steps of ``state``, from its
+    host counts, which stay as they are."""
+    opt = dataclasses.replace(state.opt_state)
+    rows = []
+    for _ in range(n):
+        rows.append(state.tx.host_scalars(opt) + [float(mix_weight)])
+        state.tx.advance(opt)
+    return rows
+
+
+def _advance(state: TrainState) -> None:
+    state.tx.advance(state.opt_state)
+    state.step += 1
+
+
+def _device_of(state: TrainState) -> torch.device:
+    return next(state.model.parameters()).device
+
+
 def make_train_step(cfg: LossConfig, lpips_params: Any = None) -> Callable:
     """``step(state, batch, mix_weight) → (state, metrics)``: forward,
     backward and one optimizer update, in place on ``state`` (its model
     and optimizer state); float32 work with TF32 off. ``mix_weight`` is
-    the synthesis-loss weight (a float or a 0-d tensor).
+    the synthesis-loss weight (a float, or a 0-d tensor that is read on
+    the host).
     ``lpips_params``: the frozen weights of the perceptual losses
     (``ops.get_lpips_params`` or ``ops.get_enc_perceptual_params``);
     without them the perceptual losses fall back to MSE, as in JAX."""
     check_supported(cfg)
 
     def step(state: TrainState, batch: Batch, mix_weight):
+        scalars = scalar_tensor(_scalar_rows(state, mix_weight, 1)[0],
+                                _device_of(state))
         with f32_exact():
-            params = state.params()
-            loss, metrics = _ae_losses(state.model, cfg, lpips_params,
-                                       batch, mix_weight)
-            grads = torch.autograd.grad(loss, list(params.values()))
-            state.tx.step({k: p.data for k, p in params.items()},
-                          dict(zip(params, grads)), state.opt_state)
-        state.step += 1
+            metrics = _update(state, cfg, lpips_params, batch, scalars)
+        _advance(state)
         return state, metrics
+
+    return step
+
+
+# eager steps of a new batch signature before its capture: they make the
+# lazily built state (cuDNN plans, autograd's device threads, the step's
+# constants) that a capture may not create
+WARMUP_STEPS = 3
+
+
+class _CapturedStep:
+    """One train step of ``state`` captured in a CUDA graph, with its
+    static inputs (``batch``, one buffer per key, and ``scalars``) and
+    its static output (``metrics``, the step's metrics stacked in the
+    order of ``keys``)."""
+
+    def __init__(self, state: TrainState, cfg: LossConfig, lpips_params: Any,
+                 like: Batch):
+        self.state = state
+        dev = _device_of(state)
+        self.batch = {k: torch.empty_like(v) for k, v in like.items()}
+        self.scalars = torch.zeros(4, dtype=torch.float32, device=dev)
+        self.graph = torch.cuda.CUDAGraph()
+        with f32_exact(), torch.cuda.graph(self.graph):
+            metrics = _update(state, cfg, lpips_params, self.batch,
+                              self.scalars)
+            self.keys = list(metrics)
+            self.metrics = torch.stack([metrics[k] for k in self.keys])
+
+    def replay(self, batch: Batch, scalars: torch.Tensor) -> torch.Tensor:
+        for k, buf in self.batch.items():
+            buf.copy_(batch[k], non_blocking=True)
+        self.scalars.copy_(scalars)
+        self.graph.replay()
+        return self.metrics
+
+
+def make_multi_train_step(cfg: LossConfig, lpips_params: Any = None, *,
+                          device) -> Callable:
+    """``step(state, batches, mix_weight) → (state, metrics)``: one
+    ``make_train_step`` step on each batch of the sequence ``batches`` in
+    turn, the same trajectory, with the metrics stacked per key ([N]).
+    JAX scans the N steps in one program (``lax.scan``).
+
+    ``device`` (the trainer's) picks the path. On the CPU the steps run
+    eagerly. On a CUDA device one step is captured in a CUDA graph and
+    replayed from static buffers: each batch is copied into them, the
+    step's ``[c1, c2, lr, mix_weight]`` is written, the graph replays and
+    its metrics are copied out before the next replay. A batch signature
+    (its keys, shapes and dtypes, with the state) is captured after its
+    first ``WARMUP_STEPS`` steps, which run eagerly on a side stream as
+    real steps of the trajectory; a capture that fails raises."""
+    check_supported(cfg)
+    if torch.device(device).type != "cuda":
+        one_step = make_train_step(cfg, lpips_params)
+
+        def eager(state: TrainState, batches: Sequence[Batch], mix_weight):
+            out = [one_step(state, b, mix_weight)[1] for b in batches]
+            return state, {k: torch.stack([m[k] for m in out])
+                           for k in out[0]}
+        return eager
+
+    side = torch.cuda.Stream(device)
+    captured: Dict[tuple, _CapturedStep] = {}
+    # signature → [state, eager steps taken]; the state is held so that
+    # its id in the signature is never reused
+    warm: Dict[tuple, list] = {}
+
+    def step(state: TrainState, batches: Sequence[Batch], mix_weight):
+        dev = _device_of(state)
+        rows = scalar_tensor(_scalar_rows(state, mix_weight, len(batches)),
+                             dev)
+        out, keys = [], None
+        for i, batch in enumerate(batches):
+            sig = (id(state),) + tuple(
+                (k, tuple(v.shape), v.dtype) for k, v in sorted(batch.items()))
+            rec = captured.get(sig)
+            if rec is None and warm.setdefault(sig, [state, 0])[1] \
+                    >= WARMUP_STEPS:
+                rec = captured[sig] = _CapturedStep(state, cfg, lpips_params,
+                                                    batch)
+            if rec is not None:
+                out.append(rec.replay(batch, rows[i]).clone())
+                keys = rec.keys
+            else:
+                side.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(side), f32_exact():
+                    metrics = _update(state, cfg, lpips_params, batch,
+                                      rows[i])
+                    keys = list(metrics)
+                    out.append(torch.stack([metrics[k] for k in keys]))
+                torch.cuda.current_stream(dev).wait_stream(side)
+                warm[sig][1] += 1
+            _advance(state)
+        stacked = torch.stack(out)
+        return state, {k: stacked[:, j] for j, k in enumerate(keys)}
 
     return step
 

@@ -9,8 +9,11 @@ package's experiment files under ``output_dir``:
   settings.yaml                (``config/settings.py``)
   models/<epoch>.models (after ``epoch_threshold``), ae.models,
   caisr.models, last.models    (``train/checkpoint.py`` layout)
+  models/ema.models            (``ema_decay > 0``: the averaged weights)
   loss_iters.npz, losses_train.npz, losses_test.npz
   log_images/                  (``cli/train_loop.py`` writes the PNGs)
+  tb/                          (``log_tensorboard``, when tensorboardX
+                               imports)
 
 The perceptual losses take frozen weights that the trainer resolves
 as JAX does (``lpips_params``: VGG LPIPS for ``perceptual``, the encoder
@@ -18,16 +21,17 @@ artifact for ``perceptual_enc``) and records their mode in
 ``args["lpips_mode"]``, hence in ``settings.yaml``; they are not among
 ``state.params()``, so the optimizer never sees them.
 
-Not ported, and raising when training: other families and models (item
-9), EMA weights, ``steps_per_dispatch`` (``train_many``) and
-TensorBoard logging (item 7), ``num_devices > 1`` (item 11). An
-``eval_mode`` trainer (serving, scoring) takes any experiment of a
-VanillaACAI model: it builds no train or eval step, so the
-training-only options of the experiment do not matter.
+``train_many`` runs N steps through ``make_multi_train_step`` (a CUDA
+graph replayed per step on the card). Not ported, and raising when
+training: other families and models (item 9), ``num_devices > 1``
+(item 11). An ``eval_mode`` trainer (serving, scoring) takes any
+experiment of a VanillaACAI model: it builds no train or eval step, so
+the training-only options of the experiment do not matter.
 """
 from __future__ import annotations
 
 import os
+import warnings
 from collections import defaultdict
 from typing import Any, Dict, Optional
 
@@ -37,13 +41,15 @@ import torch
 from ..config.settings import (apply_setting_defaults, load_settings,
                                save_experiment_settings)
 from ..device import resolve_device
-from ..models import AEConfig, VanillaACAI
+from ..models import AEConfig, VanillaACAI, flax_to_torch
+from ..models.convert import torch_to_flax
 from ..ops.lpips import get_lpips_params, lpips_weights_info
 from ..ops.perceptual import get_enc_perceptual_params
-from .checkpoint import load_checkpoint, save_checkpoint
+from .checkpoint import load_checkpoint, load_checkpoint_raw, save_checkpoint
+from .import_torch import is_torch_checkpoint
 from .state import create_train_state
 from .steps import (FAMILY_OF_MODEL, LossConfig, make_eval_step,
-                    make_train_step)
+                    make_multi_train_step, make_train_step)
 
 
 def loss_config_from_args(args: Dict[str, Any]) -> LossConfig:
@@ -90,12 +96,6 @@ def _unsupported(args: Dict[str, Any], eval_mode: bool) -> Optional[str]:
         return f"ae_class {args['ae_class']!r} (ROADMAP item 9)"
     if eval_mode:
         return None
-    if float(args.get("ema_decay") or 0.0) > 0:
-        return "ema_decay > 0 (EMA weights, ROADMAP item 7)"
-    if int(args.get("steps_per_dispatch", 1) or 1) > 1:
-        return "steps_per_dispatch > 1 (train_many, ROADMAP item 7)"
-    if args.get("log_tensorboard"):
-        return "log_tensorboard (ROADMAP item 7)"
     if int(args.get("num_devices") or 1) > 1:
         return "num_devices > 1 (ROADMAP item 11)"
     return None
@@ -113,6 +113,7 @@ class Trainer:
     ``params_sr``, ``synth_cache``) is the one of ``ServingModel``."""
 
     params_sr = None
+    tb_writer = None
 
     def __init__(self, args: Dict[str, Any], eval_mode: bool = False,
                  device=None, seed: Optional[int] = None):
@@ -158,6 +159,14 @@ class Trainer:
                                               self.lpips_params)
             self.eval_step = make_eval_step(self.loss_config,
                                             self.lpips_params)
+        self._multi_step = None
+        # EMA (Polyak-averaged) weights with --ema_decay > 0: folded in
+        # after every dispatch, written as the rolling models/ema.models;
+        # a COPY of the parameters, which the steps update in place
+        self.ema_decay = float(self.args.get("ema_decay") or 0.0)
+        self.ema_params = (
+            {k: p.detach().clone() for k, p in self.state.params().items()}
+            if self.ema_decay > 0 and not eval_mode else None)
         # synthesis cores and sweep evaluators built for this model
         self.synth_cache: dict = {}
         self.test_predictions = None
@@ -197,6 +206,13 @@ class Trainer:
         save_experiment_settings(
             {k: v for k, v in self.args.items() if not k.startswith("_")},
             os.path.join(out, "settings.yaml"))
+        if self.args.get("log_tensorboard"):
+            # JAX's contract: tensorboardX when it imports, else no log
+            try:
+                from tensorboardX import SummaryWriter
+            except ImportError:
+                return
+            self.tb_writer = SummaryWriter(logdir=os.path.join(out, "tb"))
 
     def _mix_weight(self) -> float:
         if self.args.get("use_loss_annealing"):
@@ -210,9 +226,42 @@ class Trainer:
         self._iters += 1
         self.state, metrics = self.train_step(self.state, batch,
                                               self._mix_weight())
+        self._ema_step(1)
         for k, v in metrics.items():
             self.losses[k].append(v)
         return metrics
+
+    def train_many(self, batches):
+        """N optimizer steps, one on each device batch of the sequence
+        ``batches``, through ``make_multi_train_step`` (on the card a
+        CUDA graph replayed per step); the same trajectory as N
+        ``train`` calls. Returns the metrics stacked per key ([N])."""
+        if self._multi_step is None:
+            self._multi_step = make_multi_train_step(
+                self.loss_config, self.lpips_params, device=self.device)
+        n = len(batches)
+        self._iters += n
+        self.state, metrics = self._multi_step(self.state, batches,
+                                               self._mix_weight())
+        self._ema_step(n)
+        for k, v in metrics.items():
+            self.losses[k].extend(v.unbind())
+        return metrics
+
+    @torch.no_grad()
+    def _ema_step(self, n_steps: int) -> None:
+        """Fold the parameters into the EMA with the decay ``ema_decay **
+        n_steps``: ``train_many`` keeps no intermediate iterates, so JAX
+        compounds the decay over a dispatch, and so does the port."""
+        if self.ema_params is None:
+            return
+        d = np.float32(self.ema_decay ** int(n_steps))
+        ema = list(self.ema_params.values())
+        params = self.state.params()
+        torch._foreach_mul_(ema, float(d))
+        torch._foreach_add_(ema, torch._foreach_mul(
+            [params[k].detach() for k in self.ema_params],
+            float(np.float32(1) - d)))
 
     def validate(self, batch: Dict[str, torch.Tensor]):
         """Record one validation batch's losses (device tensors); its
@@ -239,7 +288,28 @@ class Trainer:
         save_checkpoint(fname, self.state, epoch)
 
     def load(self, fname: str) -> None:
+        """Restore ``fname`` (the port's or JAX's ``SRTPU1`` file, or a
+        reference torch pickle) into the state; an EMA track resumes from
+        ``ema.models`` beside it, else from the loaded weights."""
         self.state, self.epoch = load_checkpoint(fname, self.state)
+        if (is_torch_checkpoint(fname)
+                and not self.model_config.stem_pad_parity):
+            warnings.warn(
+                f"{fname}: reference torch checkpoint loaded into the "
+                f"shape-exact stem — set stem_pad_parity: true (or "
+                f"--stem_pad_parity) to evaluate it through the padded "
+                f"stem geometry it was trained with")
+        if self.ema_params is not None:
+            ema_path = os.path.join(os.path.dirname(fname), "ema.models")
+            source = self.state.params()
+            if os.path.isfile(ema_path):
+                raw = load_checkpoint_raw(ema_path)
+                source = flax_to_torch(raw["model_dict_ae"],
+                                       raw.get("batch_stats", {}),
+                                       self.model_config)
+            with torch.no_grad():
+                for k, v in self.ema_params.items():
+                    v.copy_(source[k])
         self._restore_history()
 
     def _restore_history(self) -> None:
@@ -281,7 +351,8 @@ class Trainer:
 
     def show_loss_on_tensorboard(self, eval_type: str = "train") -> None:
         """Flush the step losses to per-epoch means (float64 on the host),
-        one stacked device→host copy per key; no TensorBoard."""
+        one stacked device→host copy per key, and write each mean as the
+        scalar ``<key>/<eval_type>`` when TensorBoard is on."""
         if eval_type == "train":
             loss_dict, mean_losses = self.losses, self.mean_losses
             self.loss_iters.append(self.iters)
@@ -290,8 +361,11 @@ class Trainer:
         for key, values in loss_dict.items():
             if values:
                 stacked = torch.stack([torch.as_tensor(v) for v in values])
-                mean_losses[key].append(float(np.mean(
-                    stacked.cpu().numpy().astype(np.float64))))
+                mean = float(np.mean(stacked.cpu().numpy().astype(np.float64)))
+                mean_losses[key].append(mean)
+                if self.tb_writer is not None:
+                    self.tb_writer.add_scalar(f"{key}/{eval_type}", mean,
+                                              self.iters)
 
     def reset_losses(self) -> None:
         for d in (self.losses, self.losses_test):
@@ -337,7 +411,44 @@ class Trainer:
                              self.epoch + 1)
         self.save_models(os.path.join(self.dir_models, "last.models"),
                          self.epoch + 1)
+        if self.ema_params is not None:
+            # a normal checkpoint whose parameters are the averaged ones
+            # (buffers and optimizer state from the live state): load it
+            # with get_trainer(model_nbr='ema')
+            save_checkpoint(os.path.join(self.dir_models, "ema.models"),
+                            self.state, self.epoch + 1,
+                            params=self.ema_params)
         self.epoch += 1
+
+    # ------------------------------------------------------------------
+    # TensorBoard images and histograms
+    # ------------------------------------------------------------------
+
+    def log_tb_image(self, tag: str, grid_hw: np.ndarray) -> None:
+        """Log an [H, W] (or [H, W, C]) image grid, clipped to [0, 1]."""
+        if self.tb_writer is None:
+            return
+        img = np.asarray(grid_hw, np.float32)
+        img = img[None] if img.ndim == 2 else np.transpose(img, (2, 0, 1))
+        self.tb_writer.add_image(tag, np.clip(img, 0.0, 1.0), self.iters)
+
+    def log_tb_histograms(self) -> None:
+        """One histogram per parameter, under JAX's names and layouts
+        (the flax tree's path, e.g. ``enc/Conv_0/kernel``, in its
+        order)."""
+        if self.tb_writer is None:
+            return
+        params, _ = torch_to_flax(self.state.params())
+
+        def walk(tree, path):
+            for key in sorted(tree):
+                if isinstance(tree[key], dict):
+                    yield from walk(tree[key], path + [key])
+                else:
+                    yield "/".join(path + [key]), tree[key]
+
+        for name, leaf in walk(params, []):
+            self.tb_writer.add_histogram(name, leaf.ravel(), self.iters)
 
 
 def get_trainer(src_path: str, model_nbr=None, eval_mode: bool = True,

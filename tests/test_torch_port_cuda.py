@@ -418,3 +418,118 @@ def test_create_hr_images_with_lpips_on_card(cuda):
                 np.testing.assert_allclose(got["per_volume"][pid][k], v,
                                            rtol=1e-5, atol=1e-4,
                                            err_msg=f"{method} {pid} {k}")
+
+
+def _clone_state(state):
+    """A TrainState of the same values in tensors of its own."""
+    import copy
+    import dataclasses
+
+    from superresolution_aniso_mri_tpu_torch.train import TrainState
+
+    opt = dataclasses.replace(
+        state.opt_state,
+        mu={k: v.clone() for k, v in state.opt_state.mu.items()},
+        nu={k: v.clone() for k, v in state.opt_state.nu.items()})
+    return TrainState(copy.deepcopy(state.model), state.tx, opt, state.step)
+
+
+def _graph_batches(rng, n, taps):
+    out = []
+    for _ in range(n):
+        a_to = rng.uniform(0.1, 0.9, 2).astype(np.float32)
+        batch = {"image": rng.rand(4, 1, 32, 32), "slice_between":
+                 rng.rand(2, 1, 32, 32), "alpha_from": 1 - a_to,
+                 "alpha_to": a_to, "is_inbetween": np.array([1.0, 0.0])}
+        if taps == 6:
+            batch["outer"] = rng.rand(4, 1, 32, 32)
+            batch["outer2"] = rng.rand(4, 1, 32, 32)
+        out.append({k: torch.from_numpy(np.asarray(v, np.float32)).cuda()
+                    for k, v in batch.items()})
+    return out
+
+
+@pytest.mark.parametrize("loss", ["mse_triplets", "lanczos3_septets",
+                                  "perceptual"])
+def test_graph_replay_matches_eager_steps(cuda, loss, monkeypatch):
+    """``make_multi_train_step`` on the card: its first dispatch takes the
+    warm-up steps eagerly and captures; then 4 replays of the captured
+    step against 4 eager steps from the same state and batches: metrics
+    and parameters within 1e-6 relative (bitwise expected: the same
+    kernels in the same order). cuDNN's default backward algorithms may
+    sum with atomics, so both run with ``cudnn.deterministic``."""
+    from superresolution_aniso_mri_tpu_torch.models import (AEConfig,
+                                                            VanillaACAI)
+    from superresolution_aniso_mri_tpu_torch.train import (
+        LossConfig, create_train_state, make_multi_train_step,
+        make_train_step)
+    from superresolution_aniso_mri_tpu_torch.train import steps as steps_mod
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    kw = {"mse_triplets": dict(image_mix_loss_func="mse"),
+          "lanczos3_septets": dict(image_mix_loss_func="mse",
+                                   use_laploss=True,
+                                   train_latent_interp="lanczos3"),
+          "perceptual": dict(image_mix_loss_func="perceptual")}[loss]
+    lpips = _lpips_weights(cuda) if loss == "perceptual" else None
+    cfg = LossConfig(model="ae_combined", **kw)
+    model = VanillaACAI(AEConfig(width=32, latent_width=8, depth=4,
+                                 latent=6))
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    state = create_train_state(model.to(cuda), 1e-4, max_grad_norm=1.0)
+    rng = np.random.RandomState(2)
+    taps = 6 if "lanczos3" in loss else 2
+    multi = make_multi_train_step(cfg, lpips, device=cuda)
+    replays = []
+    replay = steps_mod._CapturedStep.replay
+    monkeypatch.setattr(steps_mod._CapturedStep, "replay",
+                        lambda self, *a: replays.append(1) or replay(self, *a))
+    multi(state, _graph_batches(rng, steps_mod.WARMUP_STEPS + 1, taps), 0.3)
+    assert len(replays) == 1
+    eager_state = _clone_state(state)
+    batches = _graph_batches(rng, 4, taps)
+    _, got = multi(state, batches, 0.3)
+    assert len(replays) == 5
+    eager = make_train_step(cfg, lpips)
+    for i, b in enumerate(batches):
+        _, want = eager(eager_state, b, 0.3)
+        for k, v in want.items():
+            assert abs(float(got[k][i]) - float(v)) <= 1e-6 * abs(float(v)), k
+    assert state.opt_state.count == eager_state.opt_state.count
+    for (k, p), q in zip(state.model.state_dict().items(),
+                         eager_state.model.state_dict().values()):
+        assert float((p - q).abs().max()) <= 1e-6 * float(q.abs().max()), k
+
+
+def test_failed_capture_raises_without_eager_fallback(cuda, monkeypatch):
+    """A step that syncs with the host cannot be captured: the dispatch
+    raises, on every call, and never falls back to eager steps (last in
+    this file: the failed capture is left behind in the process)."""
+    from superresolution_aniso_mri_tpu_torch.models import (AEConfig,
+                                                            VanillaACAI)
+    from superresolution_aniso_mri_tpu_torch.train import (
+        LossConfig, create_train_state, make_multi_train_step)
+    from superresolution_aniso_mri_tpu_torch.train import steps as steps_mod
+
+    losses = steps_mod._ae_losses
+
+    def syncing(*a, **kw):
+        loss, metrics = losses(*a, **kw)
+        float(loss.detach())   # a host sync: not allowed while capturing
+        return loss, metrics
+
+    monkeypatch.setattr(steps_mod, "_ae_losses", syncing)
+    model = VanillaACAI(AEConfig(width=32, latent_width=8, depth=4,
+                                 latent=6))
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    state = create_train_state(model.to(cuda), 1e-4)
+    multi = make_multi_train_step(LossConfig(model="ae_combined",
+                                             image_mix_loss_func="mse"),
+                                  device=cuda)
+    rng = np.random.RandomState(3)
+    with pytest.raises(RuntimeError):
+        multi(state, _graph_batches(rng, steps_mod.WARMUP_STEPS + 1, 2), 0.3)
+    assert state.opt_state.count == steps_mod.WARMUP_STEPS
+    with pytest.raises(RuntimeError):
+        multi(state, _graph_batches(rng, 1, 2), 0.3)
+    assert state.opt_state.count == steps_mod.WARMUP_STEPS

@@ -252,9 +252,9 @@ def test_trainer_writes_the_jax_experiment_files(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra, item", [
-    (dict(ema_decay=0.999), "item 7"),
-    (dict(steps_per_dispatch=4), "item 7"),
-    (dict(log_tensorboard=True), "item 7"),
+    (dict(model="vae"), "item 9"),
+    (dict(model="acai_combined"), "item 9"),
+    (dict(ae_class="MultiChannelAE"), "item 9"),
     (dict(num_devices=2), "item 11"),
     (dict(ae_class="VAE"), "item 9"),
     (dict(model="alpha"), "item 9"),

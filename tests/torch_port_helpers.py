@@ -125,3 +125,75 @@ def adam_moments(opt_state):
         opt_state, is_leaf=lambda x: hasattr(x, "mu") and hasattr(x, "nu"))
     adam = next(x for x in leaves if hasattr(x, "mu"))
     return int(adam.count), adam.mu, adam.nu
+
+
+def jax_trainer(model, params, stats, args, **opt):
+    """A JAX ``Trainer`` over a numpy-seeded tree, built without its
+    ``__init__`` (whose eager flax init takes ~27 s on the CPU): the
+    attributes that its train, train_many, EMA, TensorBoard, loss-flush
+    and encode/decode methods read. ``args`` are its settings (``lr``,
+    ``ema_decay``, ``ex_loss_weight1``, ...); ``opt`` go to the
+    optimizer."""
+    import collections
+
+    from superresolution_aniso_mri_tpu.train import Trainer
+    from superresolution_aniso_mri_tpu.train.steps import (
+        LossConfig, make_train_step)
+    from superresolution_aniso_mri_tpu.train.trainer import (
+        weight_annealing_schedule)
+
+    t = object.__new__(Trainer)
+    t.args = dict(args)
+    t.model, t.model_config = model, model.config
+    t.loss_config = LossConfig(model=args.get("model", "ae_combined"),
+                               image_mix_loss_func=args.get(
+                                   "image_mix_loss_func", "mse"))
+    t.family = t.loss_config.family
+    t.lpips_params = t.mesh = t.params_sr = t.tb_writer = None
+    t._multi_step = t._ema_apply = t._jit_encode = t._jit_decode = None
+    t.state = jax_train_state(model, params, stats, **opt)
+    t.train_step = make_train_step(model, t.loss_config, donate=False)
+    t._rng = jax.random.PRNGKey(0)
+    t._iters, t.epoch = 1, 0
+    t.loss_weights = weight_annealing_schedule(
+        int(args.get("epochs", 1)), float(args.get("ex_loss_weight1", 0.001)))
+    t.ema_decay = float(args.get("ema_decay") or 0.0)
+    t.ema_params = (jax.tree_util.tree_map(jnp.copy, params)
+                    if t.ema_decay > 0 else None)
+    for name in ("losses", "losses_test", "mean_losses", "mean_losses_test"):
+        setattr(t, name, collections.defaultdict(list))
+    t.loss_iters = []
+    return t
+
+
+def port_trainer(params, stats, args, model_kw=None):
+    """The port's CPU ``Trainer`` of ``args`` with the weights of a flax
+    tree."""
+    from superresolution_aniso_mri_tpu_torch.models import flax_to_torch
+    from superresolution_aniso_mri_tpu_torch.train import Trainer
+
+    t = Trainer({**args, **SMALL, **(model_kw or {})}, device="cpu")
+    t.model.load_state_dict(flax_to_torch(params, stats, t.model_config))
+    return t
+
+
+class RecordingWriter:
+    """Stand-in for ``tensorboardX.SummaryWriter`` that keeps its calls:
+    ``(method, tag, value, step)``."""
+
+    def __init__(self, logdir=None):
+        self.logdir = logdir
+        self.calls = []
+        self.closed = False
+
+    def add_scalar(self, tag, value, step):
+        self.calls.append(("scalar", tag, float(value), int(step)))
+
+    def add_image(self, tag, img, step):
+        self.calls.append(("image", tag, np.asarray(img), int(step)))
+
+    def add_histogram(self, tag, values, step):
+        self.calls.append(("histogram", tag, np.asarray(values), int(step)))
+
+    def close(self):
+        self.closed = True
