@@ -10,7 +10,8 @@ hand-written kernel against its plain PyTorch version.
                                                  # steps each of phase 8's
                                                  # and phase 9's OASIS and
                                                  # 16 graph-replayed ones
-                                                 # of phase 10's
+                                                 # of phase 10's, 10 of
+                                                 # phase 11's acai
 
 Phases (any failure ends the run with a non-zero exit):
   1. device: the card's name and power limit (nvidia-smi);
@@ -94,14 +95,29 @@ Phases (any failure ends the run with a non-zero exit):
      (SSIM launches counted, the kernel held against the plain version);
      phase 8's caisr.models exported to the reference's torch format,
      converted back, and the three served on the card (limit 1e-6).
+ 11. the comparison families, on phase 8's trees with the OASIS
+     recipe's flags: train-brain -m acai_combined, 2 epochs eager and 2
+     with ``--steps_per_dispatch 8`` (ms/step of both), 8 replays against
+     8 eager steps with the same draws (limit 1e-6 relative),
+     find-best-model over its checkpoints on the validation patient;
+     -m vae_combined (1 epoch, ``--epoch_threshold 0``: one 24 GiB
+     checkpoint) and -m vae2 (1 epoch): ms/step, peak GiB, the
+     checkpoint read back (every tensor's sum equal), a [175, 64, 64]
+     phantom crop served and scored; -m ae_combined with ``--ae_class
+     LargerAE`` and ``VanillaACAIStrided``, 1 epoch each, served and
+     scored on the validation patient (``create_hr_images``); 3
+     small-config steps of each family on the card against the CPU with
+     the same draws.
 The main path (serve linear → score) runs with every kernel launch count
 set to 0 just before it and read just after; so do the train phase's
 path (serve the trained checkpoint → score), each find-best sweep of
 phase 7, phase 8's find-best, phase 9's scoring of the perceptual
-checkpoint and of the baselines, and phase 10's scoring of the fitted
-table. The line before the last lists every kernel with its check,
-launches (``launches``: the main path; ``launches_by_path``: every
-counted path) and times; the last line is the device summary.
+checkpoint and of the baselines, phase 10's scoring of the fitted
+table and phase 11's scoring paths (every pair each scored held
+against the plain version). The line before the last lists every
+kernel with its check, launches (``launches``: the main path;
+``launches_by_path``: every counted path) and times; the last line is
+the device summary.
 """
 import argparse
 import contextlib
@@ -1403,27 +1419,34 @@ def check_perceptual(tmp: str, seed: int, card: str, dev, mse_ms: float,
 
 
 def _clone_state(state):
-    """A TrainState of the same values in tensors of its own."""
+    """A TrainState of the same values in tensors of its own (the ACAI
+    family's optimizer state is one AdamState per group)."""
     import copy
 
     from superresolution_aniso_mri_tpu_torch.train import TrainState
 
-    opt = dataclasses.replace(
-        state.opt_state,
-        mu={k: v.clone() for k, v in state.opt_state.mu.items()},
-        nu={k: v.clone() for k, v in state.opt_state.nu.items()})
+    def clone(st):
+        return dataclasses.replace(st, mu={k: v.clone()
+                                           for k, v in st.mu.items()},
+                                   nu={k: v.clone() for k, v in st.nu.items()})
+
+    opt = state.opt_state
+    opt = ({g: clone(st) for g, st in opt.items()} if isinstance(opt, dict)
+           else clone(opt))
     return TrainState(copy.deepcopy(state.model), state.tx, opt, state.step)
 
 
 def graph_vs_eager(trainer, dev, steps: int = SPD) -> dict:
     """``steps`` replays of a train step captured for ``trainer``'s state
     against as many eager steps from a copy of that state, on the same
-    recipe batches: the largest relative loss difference and the
-    parameters' max |Δ|. cuDNN's default backward algorithms may sum
-    with atomics (two eager runs differ in the last bits), so the
-    capture and both runs use ``cudnn.deterministic``: what is compared
-    is the dispatch, not cuDNN's summation order. The capture's warm-up
-    steps run first, on the trainer's state."""
+    recipe batches, each with its step's noise drawn once by the trainer
+    (``Trainer.draw_noise``) and given to both: the largest relative
+    loss difference and the parameters' max |Δ|. cuDNN's default
+    backward algorithms may sum with atomics (two eager runs differ in
+    the last bits), so the capture and both runs use
+    ``cudnn.deterministic``: what is compared is the dispatch, not
+    cuDNN's summation order. The capture's warm-up steps run first, on
+    the trainer's state."""
     import torch
 
     from superresolution_aniso_mri_tpu_torch.train import (
@@ -1443,9 +1466,9 @@ def graph_vs_eager(trainer, dev, steps: int = SPD) -> dict:
     try:
         multi = make_multi_train_step(trainer.loss_config,
                                       trainer.lpips_params, device=dev)
-        multi(trainer.state, [next(batches) for _ in range(
-            steps_mod.WARMUP_STEPS + 1)], mix)
-        run = [next(batches) for _ in range(steps)]
+        multi(trainer.state, [trainer.draw_noise(next(batches)) for _ in
+                              range(steps_mod.WARMUP_STEPS + 1)], mix)
+        run = [trainer.draw_noise(next(batches)) for _ in range(steps)]
         eager_state = _clone_state(trainer.state)
         del replays[:]
         _, got = multi(trainer.state, run, mix)
@@ -1651,6 +1674,284 @@ def check_train_options(tmp: str, seed: int, card: str, dev, mse_ms: float,
     if not out["reference_roundtrip_max_abs"] <= 1e-6:
         raise AssertionError("the converted checkpoints serve differently")
     log(f"options timings [{card}]: " + json.dumps(out))
+    return out
+
+
+def _as_family(argv: list, model: str, *extra: str) -> list:
+    """``argv`` training ``-m model``, with ``extra`` flags appended."""
+    i = argv.index("-m")
+    return argv[:i + 1] + [model] + argv[i + 2:] + list(extra)
+
+
+def _with_threshold(argv: list, threshold: int) -> list:
+    i = argv.index("--epoch_threshold")
+    return argv[:i + 1] + [str(threshold)] + argv[i + 2:]
+
+
+def _counted_scoring(fn, what: str) -> tuple:
+    """Run ``fn`` with the kernel launch counts set to 0 just before and
+    every pair the SSIM kernel scores kept; returns (its result, the
+    ssim_slice launches, the kernel's largest error against the plain
+    version on those pairs, the seconds)."""
+    import torch
+
+    from superresolution_aniso_mri_tpu_torch.ops import cuda_kernels
+
+    scored, restore = _kept_ssim_pairs()
+    try:
+        cuda_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = cuda_kernels.LAUNCHES["ssim_slice"]
+    finally:
+        restore()
+    if len(scored) != launches or launches < 1:
+        raise AssertionError(f"{what}: {launches} SSIM launches, "
+                             f"{len(scored)} pairs kept")
+    return res, launches, check_kept_pairs(scored, what), secs
+
+
+def _fingerprint(model) -> dict:
+    """Per-tensor float64 sums of a state dict (device reductions)."""
+    return {k: float(v.double().sum()) for k, v in
+            model.state_dict().items()}
+
+
+def _free_cuda() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def families_card_vs_cpu(seed: int, dev) -> float:
+    """3 small-config steps of each comparison family on the card against
+    the CPU from the same weights and the same draws (the card trainer's
+    ``draw_noise``, copied to the CPU): the largest relative metric
+    difference; raises past 1e-4 or when the parameters drift past
+    2·lr·steps."""
+    import torch
+
+    from superresolution_aniso_mri_tpu_torch.train import Trainer
+
+    lr = 1e-5
+    _, small_batches, _ = train_data(seed + 3, SMALL_CFG["width"], 4, 3, dev)
+    worst = 0.0
+    for model, ae_class in (("acai_combined", "VanillaACAI"),
+                            ("vae_combined", "VanillaACAI"),
+                            ("vae2", "VanillaACAI"),
+                            ("ae_combined", "LargerAE"),
+                            ("ae_combined", "VanillaACAIStrided")):
+        args = dict(model=model, ae_class=ae_class, lr=lr, vae_beta=1.0,
+                    image_mix_loss_func="mse", dataset="OASIS", seed=seed,
+                    **SMALL_CFG)
+        card, cpu = Trainer(args, device=dev), Trainer(args, device="cpu")
+        # the Dense heads are drawn on each trainer's device
+        cpu.model.load_state_dict({k: v.cpu() for k, v in
+                                   card.model.state_dict().items()})
+        rel = 0.0
+        for sb in small_batches:
+            nb = card.draw_noise(sb)
+            _, cm = card.train_step(card.state, nb, 0.3)
+            _, hm = cpu.train_step(cpu.state, {k: v.cpu()
+                                               for k, v in nb.items()}, 0.3)
+            for k in hm:
+                rel = max(rel, abs(float(cm[k]) - float(hm[k]))
+                          / max(abs(float(hm[k])), 1e-12))
+        drift = max(float((p.detach().cpu() - q.detach()).abs().max())
+                    for p, q in zip(card.model.parameters(),
+                                    cpu.model.parameters()))
+        bound = 2 * lr * len(small_batches)
+        log(f"families: card vs CPU, {len(small_batches)} steps of {model} "
+            f"{ae_class} {SMALL_CFG}: max rel metric diff {rel:.3e} (limit "
+            f"1e-4), max param diff {drift:.3e} (limit 2·lr·steps = "
+            f"{bound:.1e})")
+        if not rel <= 1e-4 or not drift <= bound:
+            raise AssertionError(f"card and CPU {model} {ae_class} training "
+                                 f"differ")
+        worst = max(worst, rel)
+    return worst
+
+
+def check_families(tmp: str, seed: int, card: str, dev, mse_ms: float,
+                   profile_path=None) -> dict:
+    """Phase 11 (see the module docstring), on phase 8's trees in
+    ``tmp``; returns the SSIM launches of its scoring paths, the
+    kernel's largest error on the pairs they scored and the phase's
+    numbers."""
+    import torch
+
+    from superresolution_aniso_mri_tpu_torch.cli import entry
+    from superresolution_aniso_mri_tpu_torch.data.datasets import (
+        get_datasets)
+    from superresolution_aniso_mri_tpu_torch.evaluate import (
+        compute_volume_metrics, create_hr_images)
+    from superresolution_aniso_mri_tpu_torch.infer import create_super_volume
+    from superresolution_aniso_mri_tpu_torch.models import (
+        VAE, AEConfig, reset_parameters)
+    from superresolution_aniso_mri_tpu_torch.train import get_trainer
+
+    _free_cuda()
+    out: dict = {"launches": {}, "kernel_err": 0.0}
+
+    def scored(name, fn):
+        res, n, err, secs = _counted_scoring(fn, f"phase 11 {name}")
+        out["launches"][name] = n
+        out["kernel_err"] = max(out["kernel_err"], err)
+        out[f"{name}_s"] = secs
+        return res
+
+    # 1. acai_combined, 2 epochs eager and with --steps_per_dispatch 8;
+    # 8 replays against 8 eager steps with the same draws; find-best
+    acai = {}
+    for name, extra in (("acai", ()), ("acai_spd8", ("--steps_per_dispatch",
+                                                     str(SPD)))):
+        exper = os.path.join(tmp, name)
+        res = _train_timed(entry.train_brain, _as_family(
+            OASIS_ARGV, "acai_combined", *extra) + ["-o", tmp, "-id", name],
+            exper)
+        acai[name] = res
+        for k in ("ms_per_step", "ms_per_step_min", "s_per_epoch", "cli_s",
+                  "steps"):
+            out[f"{name}_{k}"] = res[k]
+        log(f"families {name}: " + json.dumps(
+            {k: v for k, v in res.items() if k not in ("trainer",
+                                                       "step_loss_ae")}))
+    if not acai["acai_spd8"]["dispatches"] < acai["acai_spd8"]["steps"]:
+        raise AssertionError("acai_spd8 did not dispatch several steps")
+    log(f"families: acai_combined ms/step eager "
+        f"{out['acai_ms_per_step']:.3f}, --steps_per_dispatch {SPD} "
+        f"{out['acai_spd8_ms_per_step']:.3f}; ae_combined (phase 8, same "
+        f"call) {mse_ms:.3f} [{card}]")
+    graph = graph_vs_eager(acai["acai_spd8"]["trainer"], dev)
+    out.update({f"acai_{k}": v for k, v in graph.items()})
+    log(f"families: graph vs eager, {SPD} acai_combined steps of the OASIS "
+        f"recipe with the same draws: max rel loss diff "
+        f"{graph['graph_vs_eager_loss_rel']:.3e}, max |Δ| of the parameters "
+        f"{graph['graph_vs_eager_param_abs']:.3e} (rel "
+        f"{graph['graph_vs_eager_param_rel']:.3e}; limit {GRAPH_RTOL} "
+        f"relative)")
+    if not (graph["graph_vs_eager_loss_rel"] <= GRAPH_RTOL
+            and graph["graph_vs_eager_param_rel"] <= GRAPH_RTOL):
+        raise AssertionError("the replayed acai step differs from the eager")
+    if profile_path:
+        profile_disk_steps(acai["acai"]["trainer"], dev,
+                           profile_path + ".acai.txt")
+    del acai
+    _free_cuda()
+    best = scored("acai_find_best", lambda: entry.find_best_model(
+        ["--exper_dir", os.path.join(tmp, "acai")]))
+    log(f"families acai find-best: epochs {best['epochs']}, SSIM "
+        f"{best['history']['ssim']}, {out['launches']['acai_find_best']} "
+        f"launches")
+    if best["epochs"] != [0, 1] or out["launches"]["acai_find_best"] != 2 \
+            or not np.isfinite(best["history"]["ssim"]).all():
+        raise AssertionError("acai find-best did not score both checkpoints")
+
+    # 2. vae_combined and vae2, 1 epoch each at the recipe's widths: peak
+    # memory, the checkpoint read back, a [175, 64, 64] crop served and
+    # scored. vae_combined writes only last.models: its 8 GiB of heads
+    # with their Adam moments make a 24 GiB checkpoint
+    # the recipe's --width (64): the VAE heads fix the in-plane size
+    width = int(OASIS_ARGV[OASIS_ARGV.index("--width") + 1])
+    lo = HW // 2 - width // 2
+    crop = phantom(seed + 11)[:, lo:lo + width, lo:lo + width].copy()
+    serve = dict(alpha_range=np.linspace(0, 1, DS + 1)[1:-1],
+                 downsample_steps=DS, use_original=False,
+                 generate_inbetween_slices=True)
+    # the recipe VAE's initialisation: its Dense heads (2 × 1.07 G
+    # weights) are drawn on the card
+    cfg = AEConfig(width=width, latent_width=16, depth=32, latent=128,
+                   use_batchnorm=True, use_sigmoid=True)
+    with torch.device(dev):
+        vae = VAE(cfg)
+    t0 = time.perf_counter()
+    reset_parameters(vae, torch.Generator().manual_seed(seed))
+    torch.cuda.synchronize()
+    out["vae_init_s"] = time.perf_counter() - t0
+    log(f"families: VAE {tuple(vae.encoder_mu.weight.shape)} heads "
+        f"initialised on the card in {out['vae_init_s']:.2f} s")
+    del vae
+    for name, model in (("vae", "vae_combined"), ("vae2", "vae2")):
+        exper = os.path.join(tmp, name)
+        argv = _with_threshold(_with_epochs(_as_family(OASIS_ARGV, model), 1),
+                               0 if name == "vae" else -1)
+        _free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        res = _train_timed(entry.train_brain, argv + ["-o", tmp, "-id", name],
+                           exper)
+        out[f"{name}_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        for k in ("ms_per_step", "ms_per_step_min", "cli_s", "steps"):
+            out[f"{name}_{k}"] = res[k]
+        trained = res.pop("trainer")
+        heads = trained._ae_model().encoder_mu.weight.shape
+        want = _fingerprint(trained.model)
+        del trained, res
+        _free_cuda()
+        ckpt = os.path.join(exper, "models", "last.models")
+        out[f"{name}_checkpoint_gib"] = os.path.getsize(ckpt) / 2 ** 30
+        t0 = time.perf_counter()
+        back = get_trainer(exper, "last")
+        torch.cuda.synchronize()
+        out[f"{name}_read_back_s"] = time.perf_counter() - t0
+        got = _fingerprint(back.model)
+        if got != want:
+            bad = [k for k in want if got.get(k) != want[k]][:5]
+            raise AssertionError(f"{name}: the checkpoint reads back "
+                                 f"differently: {bad}")
+        def serve_score(back=back):
+            r = create_super_volume(back, crop, **serve)
+            return r["upsampled_image"], compute_volume_metrics(
+                crop, r["upsampled_image"], downsample_steps=DS)
+
+        served, scores = scored(f"{name}_serve_score", serve_score)
+        if served.shape != crop.shape or not all(
+                np.isfinite(v) for v in scores.values()):
+            raise AssertionError(f"{name}: served {served.shape}, scores "
+                                 f"{scores}")
+        log(f"families {name}: heads {tuple(heads)}, {out[f'{name}_steps']} "
+            f"steps, ms/step {out[f'{name}_ms_per_step']:.3f}, peak "
+            f"{out[f'{name}_peak_gib']:.2f} GiB, checkpoint "
+            f"{out[f'{name}_checkpoint_gib']:.2f} GiB read back in "
+            f"{out[f'{name}_read_back_s']:.1f} s (equal), {crop.shape} crop "
+            f"served and scored {json.dumps(scores)} [{card}]")
+        del back, serve_score    # its default argument holds the trainer
+        _free_cuda()
+
+    # 3. ae_combined on LargerAE and VanillaACAIStrided, 1 epoch each,
+    # served and scored on the validation patient
+    for name, ae_class in (("larger", "LargerAE"),
+                           ("strided", "VanillaACAIStrided")):
+        exper = os.path.join(tmp, name)
+        res = _train_timed(entry.train_brain, _with_epochs(
+            OASIS_ARGV, 1) + ["--ae_class", ae_class, "-o", tmp, "-id", name],
+            exper)
+        for k in ("ms_per_step", "cli_s", "steps"):
+            out[f"{name}_{k}"] = res[k]
+        del res
+        trainer = get_trainer(exper, "caisr")
+        if type(trainer._ae_model()).__name__ != ae_class:
+            raise AssertionError(f"{name}: served a "
+                                 f"{type(trainer._ae_model()).__name__}")
+        val = get_datasets(trainer.args)[1][:1]
+        hr_res = scored(f"{name}_create_hr_images",
+                        lambda: create_hr_images(trainer, val, OASIS_DS))
+        agg = {k: hr_res["aggregate"][k][0] for k in ("ssim", "psnr")}
+        log(f"families {name} ({ae_class}): ms/step "
+            f"{out[f'{name}_ms_per_step']:.3f}, validation patient "
+            f"{json.dumps(agg)} [{card}]")
+        if not all(np.isfinite(v) for v in agg.values()):
+            raise AssertionError(f"{name}: scores {agg}")
+        del trainer
+        _free_cuda()
+
+    # 4. card against CPU, 3 small-config steps of each family
+    out["card_vs_cpu_rel"] = families_card_vs_cpu(seed, dev)
+    log(f"families timings [{card}]: " + json.dumps(out))
     return out
 
 
@@ -1897,6 +2198,7 @@ def main() -> int:
     # ---- 8. production recipes from disk -----------------------------
     # ---- 9. perceptual and SSIM losses, LPIPS, baselines --------------
     # ---- 10. the training loop's options, fit-latent-taps, reference ---
+    # ---- 11. the comparison families ----------------------------------
     with disk_trees(args.seed) as (tmp, fabricate_s):
         disk = check_disk_recipes(tmp, args.seed, card, dev, args.profile)
         disk["fabricate_s"] = fabricate_s
@@ -1906,6 +2208,9 @@ def main() -> int:
         options = check_train_options(
             tmp, args.seed, card, dev, disk["oasis_cache_ms_per_step"],
             percept["oasis_percept_ms_per_step"], args.profile)
+        families = check_families(tmp, args.seed, card, dev,
+                                  disk["oasis_cache_ms_per_step"],
+                                  args.profile)
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)  # name and power limit, as nvidia-smi prints them
@@ -1925,11 +2230,14 @@ def main() -> int:
             "baselines_create_hr_images": sum(
                 row["launches"] for name, row in percept["baselines"].items()
                 if name != "model"),
-            "fitted_create_hr_images": options["fitted_launches"]},
+            "fitted_create_hr_images": options["fitted_launches"],
+            **{f"families_{k}": v
+               for k, v in families["launches"].items()}},
         "max_abs_err": max(kcheck["max_abs_err"],
                            disk["find_best_kernel_err"],
                            percept["percept_kernel_err"],
-                           options["fitted_kernel_err"]), "ok": True,
+                           options["fitted_kernel_err"],
+                           families["kernel_err"]), "ok": True,
         "ms": kernel_ms, "ms_cold": kernel_cold_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "bound_share": bound_ms / kernel_ms,

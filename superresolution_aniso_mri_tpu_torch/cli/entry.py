@@ -659,7 +659,7 @@ def export_reference_checkpoint(argv=None, device=None):
                           model_nbr=_model_nbr(args.model_nbr),
                           eval_mode=True, device=device)
     save_reference_checkpoint(
-        os.path.expanduser(args.out), trainer.model,
+        os.path.expanduser(args.out), trainer._ae_model(),
         epoch=int(trainer.epoch or 0),
         lr=float(trainer.args.get("lr", 0.0001) or 0.0001))
     print(f"exported {args.exper_dir} [{args.model_nbr}] -> {args.out}")

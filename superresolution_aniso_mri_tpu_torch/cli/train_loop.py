@@ -27,7 +27,7 @@ run; ``--log_tensorboard`` also logs the image grid and, every 10
 epochs, the parameter histograms.
 
 Not ported, and raising before anything is written: loss masks
-(``--get_masks``, ROADMAP item 9), MNISTRoto's on-the-fly sampler (item
+(``--get_masks``, ROADMAP item 9b), MNISTRoto's on-the-fly sampler (item
 15), multi-host runs (item 11), and what ``Trainer`` and
 ``get_datasets`` refuse.
 """
@@ -120,7 +120,7 @@ def _refuse_unported(merged: Dict) -> None:
         raise NotImplementedError(
             "--get_masks: the loss masks (data/masks.py) need labeled "
             "volumes, which come with the multichannel family (ROADMAP "
-            "item 9)")
+            "item 9b)")
 
 
 def _generate_volume_previews(trainer, val_vols, merged: Dict,

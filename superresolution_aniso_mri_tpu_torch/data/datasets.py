@@ -9,7 +9,7 @@ a thread pool over ``utils/nifti.py::read_image`` (the JAX package's
 native host loader is not ported). Split files are read and written
 without pyyaml (``config/settings.py``).
 
-ACDCLBL's labeled ACDC frames raise (ROADMAP item 9). Not ported: the
+ACDCLBL's labeled ACDC frames raise (ROADMAP item 9b). Not ported: the
 eval-only loaders (sunnybrook, ARVC, SAX; item 10) and
 ``create_dhcp_dataset`` (item 12).
 """
@@ -395,7 +395,7 @@ def get_datasets(args: Dict) -> Tuple[List[Volume], List[Volume]]:
         raise NotImplementedError(
             "ACDCLBL from disk: the labeled ACDC frames "
             "(load_acdc_labeled_volumes) belong to the multichannel family, "
-            "which is not ported yet (ROADMAP item 9); --use_synthetic_data "
+            "which is not ported yet (ROADMAP item 9b); --use_synthetic_data "
             "builds its toy volumes")
 
     if dataset in ("ACDC", "ACDCC"):

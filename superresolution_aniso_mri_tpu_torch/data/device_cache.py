@@ -15,7 +15,7 @@ quarter of the CUDA device's free memory (20 GB on an idle 80 GB card:
 the README's OASIS recipe, 200 training patients of 176 x 220² float32,
 needs 6.8 GB), else, on the CPU, the JAX package's 512 MB. Label and
 loss-mask channels (ACDCLBL, ``--get_masks``) are not ported (ROADMAP
-item 9).
+item 9b).
 """
 from __future__ import annotations
 
@@ -40,7 +40,7 @@ class DeviceCachedSampler:
         if sampler.has_labels:
             raise NotImplementedError(
                 "device data cache: label channels (ACDCLBL) are not ported "
-                "yet (ROADMAP item 9)")
+                "yet (ROADMAP item 9b)")
         self.s = sampler
         self.device = torch.device(device)
         counts = [p.shape[0] for p in sampler._padded]

@@ -38,7 +38,7 @@ class TripletSampler:
         if use_masks:
             raise NotImplementedError(
                 "use_masks (--get_masks loss masks) is not ported yet: "
-                "they need labeled volumes (ROADMAP item 9)")
+                "they need labeled volumes (ROADMAP item 9b)")
         if slice_selection not in ("adjacent", "adjacent_plus", "mix"):
             raise ValueError(f"bad slice_selection {slice_selection!r}")
         if latent_taps not in (2, 4, 6):

@@ -1,10 +1,13 @@
-"""Device selection and float32 precision for the port's entry points."""
+"""Device selection, float32 precision and device→host copies for the
+port's entry points."""
 from __future__ import annotations
 
 import contextlib
 import functools
 import warnings
+from typing import Dict, List, Sequence
 
+import numpy as np
 import torch
 
 
@@ -56,3 +59,50 @@ def f32_exact():
             warnings.simplefilter("ignore")
             (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+# the optimizer's element-wise work and a checkpoint's device→host copy
+# go in groups of at most this many bytes, so their temporaries stay
+# bounded: a recipe VAE head alone is 4 GiB
+GROUP_BYTES = 1 << 30
+
+
+def byte_groups(tensors: Sequence[torch.Tensor],
+                limit: int = GROUP_BYTES) -> List[List[int]]:
+    """Consecutive index groups of ``tensors``, each of at most ``limit``
+    bytes (a larger tensor makes a group of its own)."""
+    groups: List[List[int]] = []
+    size = limit
+    for i, t in enumerate(tensors):
+        nbytes = t.numel() * t.element_size()
+        if size + nbytes > limit:
+            groups.append([])
+            size = 0
+        groups[-1].append(i)
+        size += nbytes
+    return groups
+
+
+def to_host(dicts: Sequence[Dict[str, torch.Tensor]],
+            limit: int = 256 << 20) -> List[Dict[str, np.ndarray]]:
+    """Every float32 tensor of ``dicts`` as numpy arrays, copied in few
+    device→host transfers: tensors are concatenated on the device in
+    groups of at most ``limit`` bytes (a larger one is copied alone), so
+    the copy never holds more than one group's extra memory on the
+    device."""
+    keys = [(j, k) for j, d in enumerate(dicts) for k in d]
+    tensors = [dicts[j][k].detach() for j, k in keys]
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError("checkpoint tensors must be float32")
+    out: List[Dict[str, np.ndarray]] = [{} for _ in dicts]
+    for group in byte_groups(tensors, limit):
+        parts = [tensors[i].reshape(-1) for i in group]
+        flat = (parts[0] if len(parts) == 1 else torch.cat(parts)).cpu()
+        flat = flat.numpy()
+        at = 0
+        for i in group:
+            j, k = keys[i]
+            n = tensors[i].numel()
+            out[j][k] = flat[at:at + n].reshape(tensors[i].shape)
+            at += n
+    return out

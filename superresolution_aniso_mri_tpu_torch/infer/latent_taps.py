@@ -163,7 +163,8 @@ def _gather_pairs(trainer, volumes, downsample_steps: int,
     the in-between positions: the volume's ``image_hr`` when it has one,
     else its own removed slices. Pairs are stacked, so ragged in-plane
     shapes keep the dominant one and skip the rest with a warning."""
-    from .super_volume import kept_slice_grid, model_label_semantics
+    from .super_volume import (kept_slice_grid, latent_encoder,
+                               model_label_semantics)
 
     if model_label_semantics(trainer)[0]:
         raise NotImplementedError(
@@ -186,7 +187,7 @@ def _gather_pairs(trainer, volumes, downsample_steps: int,
         if ph or pw:
             x = F.pad(x, (0, pw, 0, ph), mode="reflect")
         with f32_exact():
-            return torch.cat([model.encode(x[i:i + _ENCODE_CHUNK])
+            return torch.cat([latent_encoder(model)(x[i:i + _ENCODE_CHUNK])
                               for i in range(0, x.shape[0], _ENCODE_CHUNK)])
 
     taps_by_shape: Dict[tuple, list] = {}

@@ -12,29 +12,31 @@ from typing import Dict, Optional
 import torch
 
 from ..device import resolve_device
-from ..models import AEConfig, VanillaACAI, flax_to_torch
+from ..models import AEConfig, build_model, flax_to_torch, reset_parameters
 
 
 class ServingModel:
-    """An eval-mode ``VanillaACAI`` on one device.
+    """An eval-mode model of the ``ae_class`` registry (default
+    ``VanillaACAI``) on one device.
 
     Weights come from ``state_dict`` (e.g. ``models.flax_to_torch``) or,
-    when it is None, from ``VanillaACAI.reset_parameters(generator)``;
-    one of the two is required. ``device=None`` means the CUDA device
-    and raises without one (``device="cpu"`` runs on the CPU)."""
+    when it is None, from ``models.reset_parameters(generator)``; one of
+    the two is required. ``device=None`` means the CUDA device and
+    raises without one (``device="cpu"`` runs on the CPU)."""
 
     params_sr = None
 
     def __init__(self, cfg: AEConfig,
                  state_dict: Optional[Dict[str, torch.Tensor]] = None,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device=None, generator: Optional[torch.Generator] = None,
+                 ae_class: str = "VanillaACAI"):
         self.device = resolve_device(device)
         self.model_config = cfg
-        model = VanillaACAI(cfg)
+        model = build_model(ae_class, cfg)
         if state_dict is not None:
             model.load_state_dict(state_dict)
         elif generator is not None:
-            model.reset_parameters(generator)
+            reset_parameters(model, generator)
         else:
             raise ValueError("ServingModel needs a state_dict or a seeded "
                              "torch.Generator for its weights")
@@ -44,12 +46,15 @@ class ServingModel:
         self.synth_cache: dict = {}
 
     @classmethod
-    def from_flax(cls, cfg: AEConfig, params, batch_stats,
-                  device=None) -> "ServingModel":
-        """Serve a JAX-trained (params, batch_stats) tree of numpy arrays."""
-        return cls(cfg, flax_to_torch(params, batch_stats, cfg), device)
+    def from_flax(cls, cfg: AEConfig, params, batch_stats, device=None,
+                  ae_class: str = "VanillaACAI") -> "ServingModel":
+        """Serve a JAX-trained (params, batch_stats) tree of numpy arrays
+        (a family's ``{"ae", …}`` tree serves its ``ae``)."""
+        sd = flax_to_torch(params, batch_stats, cfg,
+                           build_model(ae_class, cfg))
+        return cls(cfg, sd, device, ae_class=ae_class)
 
-    def _ae_model(self) -> VanillaACAI:
+    def _ae_model(self) -> torch.nn.Module:
         return self._model
 
     def _ae_params(self):

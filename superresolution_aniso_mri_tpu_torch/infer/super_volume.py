@@ -16,9 +16,16 @@ The conventional baselines (``simple_interpolation``,
 ``rescale_volume``; ``:1141-1250``) are host numpy and scipy code,
 copied.
 
+Every ``ae_class`` of ``models.MODEL_REGISTRY`` serves. The VAE family
+encodes ``encode → heads → mu → unflatten`` (``encode_mu``), so it
+serves the mean, never a sample, and its Dense heads take only latents
+of a ``width`` × ``width`` input: a volume whose stride-padded in-plane
+size is not ``width`` raises a ValueError before any device work. A
+``VAE2`` latent is a flat vector, mixed the same way.
+
 Not ported in this slice (each raises): ``num_devices > 1``, the
-AE+CAISR combo (``trainer.params_sr``), multichannel/VAE models and the
-packed decoder (``packed=True``).
+AE+CAISR combo (``trainer.params_sr``), the labeled multichannel model
+(ROADMAP item 9b) and the packed decoder (``packed=True``).
 """
 from __future__ import annotations
 
@@ -29,7 +36,6 @@ import numpy as np
 import torch
 
 from ..device import f32_exact
-from ..models import VanillaACAI
 from ..ops.losses import (LANCZOS3_OFFSETS, catmull_rom_weights,
                           lanczos3_weights)
 from .latent_taps import (fitted_tap_weights, fitted_table_path,
@@ -113,6 +119,27 @@ def clip_with_label_channel(vol: torch.Tensor,
     return vol.clamp(0.0, 1.0)
 
 
+def latent_encoder(model):
+    """The encoder that serving uses: the VAE family's ``encode_mu``,
+    else ``encode``."""
+    return getattr(model, "encode_mu", model.encode)
+
+
+def check_vae_size(model, h: int, w: int) -> None:
+    """Raise ValueError when ``model`` has Dense heads (the VAE family)
+    and the stride-padded in-plane size ``h`` × ``w`` is not its
+    ``width`` × ``width``."""
+    cfg = model.config
+    div = 2 ** cfg.scales
+    hp, wp = h + (-h) % div, w + (-w) % div
+    if hasattr(model, "heads") and (hp, wp) != (cfg.width, cfg.width):
+        raise ValueError(
+            f"{type(model).__name__} serves only volumes whose padded "
+            f"in-plane size is --width ({cfg.width} x {cfg.width}): its "
+            f"Dense heads are fixed to that latent grid, got {h} x {w} "
+            f"(padded {hp} x {wp}); crop or resample the volume first")
+
+
 def latent_tap_weights(mode: str, alphas: torch.Tensor) -> torch.Tensor:
     """[A] → [A, n_taps] mixing weights for a multi-tap latent scheme."""
     if mode == "cubic":
@@ -146,12 +173,8 @@ def make_synthesis_core(model, decode_batch: Optional[int] = None,
     if packed:
         raise NotImplementedError(
             "packed=True: " + _NOT_PORTED.format(item="A11"))
-    if not isinstance(model, VanillaACAI):
-        raise NotImplementedError(
-            f"{type(model).__name__}: only VanillaACAI serves; "
-            "multichannel/VAE models are "
-            + _NOT_PORTED.format(item="S4"))
     cfg = model.config
+    encode = latent_encoder(model)
     if is_fitted_mode(latent_interp):
         table = load_latent_taps(fitted_table_path(latent_interp))
         tap_offsets = tuple(int(o) for o in table["offsets"])
@@ -183,6 +206,7 @@ def make_synthesis_core(model, decode_batch: Optional[int] = None,
         # in-plane sizes not divisible by the encoder's total stride
         # come back smaller from the decoder: reflect-pad, crop back
         h, w = kept.shape[3], kept.shape[4]
+        check_vae_size(model, h, w)
         div = 2 ** cfg.scales
         ph, pw = (-h) % div, (-w) % div
         if ph or pw:
@@ -190,10 +214,13 @@ def make_synthesis_core(model, decode_batch: Optional[int] = None,
                                            mode="reflect")
             kept = flat.unflatten(0, (b, k))
 
-        z = _chunked_call_pervol(model.encode, kept, decode_batch)
+        z = _chunked_call_pervol(encode, kept, decode_batch)
         # the latent carries the compute dtype through the mix
         z = z.to(cfg.dtype)
         a_n = alphas.shape[0]
+        # [1, 1, A, 1, ...] over the latent's own axes ([C, H, W] or
+        # VAE2's flat [D])
+        bcast = (1, 1, a_n) + (1,) * (z.ndim - 2)
         if tap_offsets is not None:
             # weights in float32, then the mix in the latent's dtype
             wts = tap_weight_fn(alphas).to(z.dtype)       # [A, n_taps]
@@ -202,10 +229,9 @@ def make_synthesis_core(model, decode_batch: Optional[int] = None,
                                 device=z.device)
             for ti, off in enumerate(tap_offsets):
                 tap = z.index_select(1, (pair + off).clamp(0, k - 1))
-                z_mix = (z_mix + wts[:, ti].view(1, 1, a_n, 1, 1, 1)
-                         * tap[:, :, None])
+                z_mix = z_mix + wts[:, ti].view(bcast) * tap[:, :, None]
         else:
-            a = alphas.to(z.dtype).view(1, 1, a_n, 1, 1, 1)
+            a = alphas.to(z.dtype).view(bcast)
             one = torch.ones((), dtype=z.dtype, device=z.device)
             z_mix = a * z[:, 1:, None] + (one - a) * z[:, :-1, None]
         k1 = k - 1
@@ -429,6 +455,7 @@ def create_super_volume(trainer, images, alpha_range=None,
         return base
 
     images = np.asarray(images, np.float32)
+    check_vae_size(trainer._ae_model(), *images.shape[1:])
     alpha_range, downsample_steps = _alpha_grid(
         alpha_range, downsample_steps, generate_inbetween_slices)
     orig_images = images
@@ -562,6 +589,7 @@ def create_super_volumes(trainer, images_list: Sequence,
     groups: Dict[tuple, list] = {}
     for idx, (img, lbl) in enumerate(zip(images_list, labels_list)):
         img = np.asarray(img, np.float32)
+        check_vae_size(trainer._ae_model(), *img.shape[1:])
         orig_images, orig_num_slices, remain = img, img.shape[0], 0
         if downsample_steps is not None or generate_inbetween_slices:
             img, remain = kept_slice_grid(img, downsample_steps)

@@ -1,7 +1,44 @@
-"""Model definitions of the port: VanillaACAI and the flax converters."""
-from .acai import Decoder, Encoder, ResBlock, VanillaACAI
+"""Model definitions of the port, the ``ae_class`` registry and the flax
+converters."""
+from .acai import (Decoder, Discriminator, Encoder, ResBlock, VanillaACAI,
+                   lerp, reset_parameters, swap_halves)
 from .config import AEConfig
 from .convert import flax_to_torch, torch_to_flax
+from .vae import VAE, VAE2
+from .variants import LargerAE, VanillaACAIStrided
 
-__all__ = ["AEConfig", "Decoder", "Encoder", "ResBlock", "VanillaACAI",
-           "flax_to_torch", "torch_to_flax"]
+MODEL_REGISTRY = {
+    "VanillaACAI": VanillaACAI,
+    "VAE": VAE,
+    "VAE2": VAE2,
+    "MultiChannelAE": None,
+    "LargerAE": LargerAE,
+    "VanillaACAIStrided": VanillaACAIStrided,
+}
+
+
+def model_config(model) -> AEConfig:
+    """The ``AEConfig`` of a model, or of the AE of an ``{"ae", …}``
+    family ``ModuleDict``."""
+    return model.config if hasattr(model, "config") else model["ae"].config
+
+
+def build_model(ae_class: str, config: AEConfig):
+    """Instantiate a model by its ``ae_class`` registry name (with zero
+    weights: ``reset_parameters`` or a state dict fills them)."""
+    if ae_class not in MODEL_REGISTRY:
+        raise ValueError(f"unknown ae_class {ae_class!r}; known: "
+                         f"{sorted(MODEL_REGISTRY)}")
+    cls = MODEL_REGISTRY[ae_class]
+    if cls is None:
+        raise NotImplementedError(
+            f"ae_class {ae_class!r}: the labeled multichannel model is not "
+            f"ported yet (ROADMAP item 9b)")
+    return cls(config)
+
+
+__all__ = ["AEConfig", "Decoder", "Discriminator", "Encoder", "LargerAE",
+           "MODEL_REGISTRY", "ResBlock", "VAE", "VAE2", "VanillaACAI",
+           "VanillaACAIStrided", "build_model", "flax_to_torch", "lerp",
+           "model_config",
+           "reset_parameters", "swap_halves", "torch_to_flax"]

@@ -1,12 +1,12 @@
 """ACAI-style convolutional autoencoder, NCHW.
 
 Port of ``superresolution_aniso_mri_tpu/models/acai.py`` (``Encoder``,
-``Decoder``, ``VanillaACAI``, ``ResBlock``). ``train=False`` (serving)
+``Decoder``, ``VanillaACAI``, ``ResBlock``, the ACAI critic
+``Discriminator``, ``lerp``, ``swap_halves``). ``train=False`` (serving)
 normalises with the BatchNorm running statistics; ``train=True``
 normalises with the batch's statistics and, unless ``update_stats`` is
 False, advances the running statistics once, as flax's ``BatchNorm``
-with ``mutable=["batch_stats"]`` does. The ACAI ``Discriminator``,
-``lerp`` and ``swap_halves`` belong to the acai family (ROADMAP item 9).
+with ``mutable=["batch_stats"]`` does.
 
 Precision follows the reference's mixed-precision rule exactly, with
 explicit casts rather than autocast: parameters are float32; each conv
@@ -18,7 +18,8 @@ as float32.
 Parameter layout: a flax ``Conv_i`` lives at ``convs.i`` (OIHW),
 ``BatchNorm_i`` at ``bns.i``, ``ConvTranspose_i`` at ``ups.i`` (torch's
 ``(in, out, kh, kw)``, kernel flipped — see ``models/convert.py``) and
-``ResBlock_i`` at ``res.i``.
+``ResBlock_i`` at ``res.i``, a ``Dense`` at its flax name (weight
+``[out, in]``) and the critic's ``Encoder_0`` at ``encoder``.
 """
 from __future__ import annotations
 
@@ -41,17 +42,33 @@ def _leaky(x: torch.Tensor) -> torch.Tensor:
 
 class Conv(nn.Module):
     """Stride-1 conv with SAME padding for odd kernels > 1 and VALID for
-    1x1; float32 parameters cast to the activation dtype per call."""
+    1x1, or (``stride > 1``) a VALID strided conv; float32 parameters
+    cast to the activation dtype per call."""
 
-    def __init__(self, cin: int, cout: int, kernel: int):
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(cout, cin, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(cout))
-        self.padding = kernel // 2
+        self.stride = stride
+        self.padding = kernel // 2 if stride == 1 else 0
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
-                        padding=self.padding)
+                        stride=self.stride, padding=self.padding)
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense`` with float32 parameters: ``x @ weight.T + bias``
+    in the input's dtype (float32 at every caller). ``weight`` is
+    ``[out, in]``, the transpose of the flax kernel."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(cout, cin))
+        self.bias = nn.Parameter(torch.zeros(cout))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight, self.bias)
 
 
 class ConvTranspose(nn.Module):
@@ -252,24 +269,73 @@ class VanillaACAI(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         return self.decode(self.encode(x, train), train)
 
-    @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """ACAI author initialisation, as the reference's
-        ``acai_kernel_init``: every conv kernel ~ N(0, std) with
-        ``std = 1/sqrt((1 + 0.2^2) * fan_in)``, fan_in = kh*kw*in;
-        zero biases; identity BatchNorm. Draws on the CPU from
-        ``generator`` in module order, so a seed gives the same weights
-        on every machine."""
-        for mod in self.modules():
-            if isinstance(mod, (Conv, ConvTranspose)):
-                w = mod.weight
-                cin = w.shape[0] if isinstance(mod, ConvTranspose) else w.shape[1]
-                fan_in = cin * w.shape[2] * w.shape[3]
-                std = 1.0 / math.sqrt((1.0 + 0.2 ** 2) * fan_in)
-                w.copy_(torch.randn(w.shape, generator=generator) * std)
-                mod.bias.zero_()
-            elif isinstance(mod, BatchNorm):
-                mod.weight.fill_(1.0)
-                mod.bias.zero_()
-                mod.running_mean.zero_()
-                mod.running_var.fill_(1.0)
+        reset_parameters(self, generator)
+
+
+# flax's lecun_normal: a normal truncated at two standard deviations,
+# widened so that the truncated draw has variance 1 / fan_in
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
+    """Initialise every layer of ``module`` as the JAX package does.
+
+    Convs (strided and transposed too): the reference's
+    ``acai_kernel_init``, N(0, std) with ``std = 1/sqrt((1 + 0.2^2) *
+    fan_in)``, fan_in = kh*kw*in, drawn on the CPU from ``generator``
+    in module order, so a seed gives the same weights on every machine;
+    zero biases; identity BatchNorm. Dense kernels: flax's
+    ``lecun_normal``, drawn on the weight's own device from a generator
+    seeded by one draw of ``generator`` (a recipe VAE head holds 1.07 G
+    weights, which the CPU draws far slower than the card)."""
+    for mod in module.modules():
+        if isinstance(mod, (Conv, ConvTranspose)):
+            w = mod.weight
+            cin = w.shape[0] if isinstance(mod, ConvTranspose) else w.shape[1]
+            fan_in = cin * w.shape[2] * w.shape[3]
+            std = 1.0 / math.sqrt((1.0 + 0.2 ** 2) * fan_in)
+            w.copy_(torch.randn(w.shape, generator=generator) * std)
+            mod.bias.zero_()
+        elif isinstance(mod, Dense):
+            w = mod.weight
+            seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
+            dev_gen = torch.Generator(device=w.device).manual_seed(seed)
+            std = math.sqrt(1.0 / w.shape[1]) / _TRUNC_STD
+            nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=dev_gen)
+            mod.bias.zero_()
+        elif isinstance(mod, BatchNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+            mod.running_mean.zero_()
+            mod.running_var.fill_(1.0)
+
+
+class Discriminator(nn.Module):
+    """The ACAI critic: an ``Encoder`` (flax ``Encoder_0``), then the mean
+    of each sample's flattened latent → [N]."""
+
+    def __init__(self, config: AEConfig):
+        super().__init__()
+        self.config = config
+        self.encoder = Encoder(config)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                update_stats: bool = True) -> torch.Tensor:
+        return self.encoder(x, train, update_stats).flatten(1).mean(dim=1)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        reset_parameters(self, generator)
+
+
+def lerp(start: torch.Tensor, end: torch.Tensor, weight) -> torch.Tensor:
+    """Elementwise ``start + weight * (end - start)``."""
+    return start + weight * (end - start)
+
+
+def swap_halves(x: torch.Tensor) -> torch.Tensor:
+    """The two batch halves of ``x`` concatenated in swapped order."""
+    b = x.shape[0] // 2
+    return torch.cat([x[b:], x[:b]], dim=0)

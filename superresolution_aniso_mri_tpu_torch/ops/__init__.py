@@ -2,7 +2,8 @@
 distances, CUDA kernels."""
 from .cuda_kernels import LAUNCHES, reset_launch_counts, ssim_volume_fused
 from .lap_pyramid import lap_loss, laplacian_pyramid
-from .losses import (LANCZOS3_OFFSETS, catmull_rom_weights,
+from .losses import (LANCZOS3_OFFSETS, bce_sum_over_batch,
+                     catmull_rom_weights, kl_standard_normal,
                      lanczos3_weights, latent_mix, latent_mix_cubic,
                      latent_mix_lanczos3, mse)
 from .lpips import (get_lpips_params, init_lpips_params, load_lin_weights,
@@ -16,7 +17,8 @@ from .perceptual import (enc_lpips_distance, enc_perceptual_loss,
                          save_enc_perceptual)
 
 __all__ = [
-    "LANCZOS3_OFFSETS", "LAUNCHES", "catmull_rom_weights",
+    "LANCZOS3_OFFSETS", "LAUNCHES", "bce_sum_over_batch",
+    "catmull_rom_weights", "kl_standard_normal",
     "enc_lpips_distance", "enc_perceptual_loss", "gaussian_filter2d",
     "get_enc_perceptual_params", "get_lpips_params", "init_lpips_params",
     "lanczos3_weights", "lap_loss", "laplacian_pyramid", "latent_mix",

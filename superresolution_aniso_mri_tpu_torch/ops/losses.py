@@ -2,7 +2,7 @@
 multi-tap schemes.
 
 Port of ``superresolution_aniso_mri_tpu/ops/losses.py`` (``mse``,
-``latent_mix``, ``catmull_rom_weights``, ``LANCZOS3_OFFSETS``,
+``bce_sum_over_batch``, ``kl_standard_normal``, ``latent_mix``, ``catmull_rom_weights``, ``LANCZOS3_OFFSETS``,
 ``lanczos3_weights``, ``latent_mix_cubic``, ``latent_mix_lanczos3``).
 Weights are computed in the dtype of ``t`` (float32 at every caller).
 """
@@ -24,6 +24,21 @@ def mse(pred: torch.Tensor, target: torch.Tensor,
     if mask is not None:
         d = d * mask
     return d.mean()
+
+
+def bce_sum_over_batch(pred: torch.Tensor, target: torch.Tensor,
+                       eps: float = 1e-7) -> torch.Tensor:
+    """Binary cross entropy summed over the elements and divided by the
+    batch size (the VAE reconstruction loss); ``pred`` is clipped to
+    ``[eps, 1 - eps]``."""
+    p = pred.clamp(eps, 1.0 - eps)
+    ce = -(target * torch.log(p) + (1.0 - target) * torch.log1p(-p))
+    return ce.sum() / pred.shape[0]
+
+
+def kl_standard_normal(mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
+    """Mean over the elements of KL(N(mu, exp(logvar)) ‖ N(0, 1))."""
+    return (-0.5 * logvar + 0.5 * (torch.exp(logvar) + mu ** 2) - 0.5).mean()
 
 
 def latent_mix(z: torch.Tensor, alpha_from, alpha_to) -> torch.Tensor:

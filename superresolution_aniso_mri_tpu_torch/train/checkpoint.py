@@ -20,55 +20,40 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models import flax_to_torch
+from ..models import flax_to_torch, model_config
 from ..models.convert import torch_to_flax
 from . import msgpack
 from .import_torch import is_torch_checkpoint, load_torch_reference
-from .state import AdamState, TrainState
+from .state import TrainState
 
 _MAGIC = b"SRTPU1\x00\x00"
-
-
-def _to_host(groups):
-    """Every tensor of ``groups`` (dicts of float32 tensors) in ONE
-    device→host copy; returns the dicts with numpy arrays."""
-    tensors = [t.detach() for g in groups for t in g.values()]
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("checkpoint tensors must be float32")
-    flat = torch.cat([t.reshape(-1) for t in tensors]).cpu().numpy()
-    out, at = [], 0
-    for g in groups:
-        host = {}
-        for key, t in g.items():
-            host[key] = flat[at:at + t.numel()].reshape(t.shape)
-            at += t.numel()
-        out.append(host)
-    return out
 
 
 def save_checkpoint(path: str, state: TrainState, epoch: int,
                     params: Optional[Dict[str, torch.Tensor]] = None) -> None:
     """Write the model, optimizer state and ``epoch`` of ``state``;
     ``params`` (e.g. the EMA weights) replace the model's parameters of
-    the same names."""
-    st = state.opt_state
-    sd = {**state.model.state_dict(), **(params or {})}
-    sd, mu, nu = _to_host([sd, st.mu, st.nu])
-    params, batch_stats = torch_to_flax(sd)
+    the same names. The ACAI family's ``{"ae", "disc"}`` model is stored
+    as the dict trees JAX stores. The blob is streamed to the file."""
+    model = state.model
+    tree, batch_stats = torch_to_flax({**model.state_dict(), **(params or {})})
+    if isinstance(model, torch.nn.ModuleDict):
+        # JAX keeps each group's (possibly empty) statistics tree
+        batch_stats = {k: batch_stats.get(k, {}) for k in model}
     payload = {
-        "model_dict_ae": params,
-        "optimizer_dict_ae": state.tx.opt_state_tree(
-            AdamState(st.count, mu, nu, st.schedule_count)),
+        "model_dict_ae": tree,
+        "optimizer_dict_ae": state.tx.opt_state_tree(state.opt_state),
         "batch_stats": batch_stats,
         "epoch": np.asarray(int(epoch), np.int64),
     }
-    blob = msgpack.packb(payload)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         f.write(_MAGIC)
-        f.write(struct.pack("<q", len(blob)))
-        f.write(blob)
+        f.write(struct.pack("<q", 0))
+        n = msgpack.pack_to(f.write, payload)
+        f.seek(len(_MAGIC))
+        f.write(struct.pack("<q", n))
     os.replace(tmp, path)
 
 
@@ -99,12 +84,13 @@ def load_checkpoint(path: str, state: TrainState) -> Tuple[TrainState, int]:
         return load_torch_reference(path, state)
     raw = load_checkpoint_raw(path)
     model = state.model
+    cfg = model_config(model)
     sd = flax_to_torch(raw["model_dict_ae"], raw.get("batch_stats", {}),
-                       model.config)
+                       cfg, model, device=next(model.parameters()).device)
     model.load_state_dict(sd)
     try:
         state.tx.load_opt_state_tree(raw["optimizer_dict_ae"],
-                                     state.opt_state, model)
+                                     state.opt_state, state.params(), cfg)
     except (ValueError, KeyError, TypeError) as e:
         warnings.warn(
             f"{path}: optimizer state does not match the current "

@@ -13,8 +13,14 @@ side's indexed entries are classified by kind (a conv carries a 4-D
 ``conv.<i>.*`` keys) and zipped, kind by kind and in order, against the
 port's module names (``models/acai.py``): convs ``stem``, ``convs.i``,
 ``head`` (encoder) and ``convs.i``, ``out`` (decoder), ``bns.i``,
-``res.i.conv0`` / ``conv1``. Both are NCHW, so the tensors are copied as
-they are. Optimizer moments are not imported: torch Adam's state has no
+``res.i.conv0`` / ``conv1``. The other ``ae_class`` models with the same
+``enc`` / ``dec`` layout (LargerAE, VanillaACAIStrided, whose strided
+convs sit in ``convs`` in call order) map the same way; as in JAX, the
+sides without convs (the VAE's Dense heads) keep their values, and a
+checkpoint side other than ``enc`` / ``dec`` is refused. Both are NCHW, so the tensors are copied as they are. For the ACAI
+family's ``{"ae", "disc"}`` model the checkpoint (the reference stores
+only ``model_dict_ae``) fills the ``ae`` and the critic keeps its
+values. Optimizer moments are not imported: torch Adam's state has no
 counterpart in the optax chain's, so they restart fresh, as in JAX.
 """
 from __future__ import annotations
@@ -22,8 +28,7 @@ from __future__ import annotations
 from typing import Dict, List, Tuple
 
 import torch
-
-from ..models import VanillaACAI
+from torch import nn
 
 __all__ = ["is_torch_checkpoint", "load_torch_reference",
            "reference_state_to_port"]
@@ -93,12 +98,12 @@ def reference_layers(entries: Dict[str, torch.Tensor]):
     return convs, bns, res
 
 
-def port_layers(model: VanillaACAI, side: str
+def port_layers(model: nn.Module, side: str
                 ) -> Tuple[List[str], List[str], List[str]]:
     """(conv, BatchNorm, ResBlock) module paths of one side of the port's
     model, each in call order."""
     mod = getattr(model, side)
-    if side == "dec" and len(mod.ups):
+    if side == "dec" and len(getattr(mod, "ups", ())):
         raise NotImplementedError(
             "the transposed-conv decoder (use_upsample=False) has no "
             "reference checkpoint layout: torch and flax transposed "
@@ -107,10 +112,10 @@ def port_layers(model: VanillaACAI, side: str
     convs = ([f"{side}.stem"] + convs + [f"{side}.head"] if side == "enc"
              else convs + [f"{side}.out"])
     return (convs, [f"{side}.bns.{i}" for i in range(len(mod.bns))],
-            [f"{side}.res.{i}" for i in range(len(mod.res))])
+            [f"{side}.res.{i}" for i in range(len(getattr(mod, "res", ())))])
 
 
-def layer_pairs(model: VanillaACAI, side: str, entries):
+def layer_pairs(model: nn.Module, side: str, entries):
     """[(reference key, port key)] of every tensor of one side, from the
     kind-by-kind zip; raises when the layer counts differ."""
     convs, bns, res = reference_layers(entries)
@@ -146,25 +151,34 @@ def layer_pairs(model: VanillaACAI, side: str, entries):
     return pairs
 
 
-def reference_state_to_port(torch_sd, model: VanillaACAI
+def reference_state_to_port(torch_sd, model: nn.Module
                             ) -> Dict[str, torch.Tensor]:
-    """The port's state dict for ``model`` from a reference NCHW state
-    dict. Raises ValueError on a side the model lacks, a side of the
-    model the checkpoint lacks (a partial artifact would otherwise serve
-    a random decoder), other layer counts or other shapes."""
+    """The port's state dict for the ``enc`` / ``dec`` of ``model`` from
+    a reference NCHW state dict. Raises ValueError on a side the model
+    lacks, a conv-owning side of the model the checkpoint lacks (a
+    partial artifact would otherwise serve a random decoder), other layer
+    counts or other shapes; NotImplementedError on a side other than
+    ``enc`` / ``dec``."""
     sides = split_sides(torch_sd)
-    unknown = sorted(set(sides) - {"enc", "dec"})
+    model_sides = sorted(name for name, mod in model.named_children()
+                         if any(p.ndim == 4 for p in mod.parameters()))
+    unknown = sorted(set(sides) - {n for n, _ in model.named_children()})
     if unknown:
         raise ValueError(
             f"torch checkpoint has submodules {unknown} with no "
-            f"counterpart (model sides: ['dec', 'enc']) — wrong ae_class "
+            f"counterpart (model sides: {model_sides}) — wrong ae_class "
             f"for this checkpoint?")
-    missing = sorted({"enc", "dec"} - set(sides))
+    missing = sorted(set(model_sides) - set(sides))
     if missing:
         raise ValueError(
             f"torch checkpoint is missing submodules {missing} that the "
             f"model requires (checkpoint sides: {sorted(sides)}) — "
             f"partial/encoder-only artifact?")
+    other = sorted(set(sides) - {"enc", "dec"})
+    if other:
+        raise NotImplementedError(
+            f"torch checkpoint sides {other}: only the enc / dec layers of "
+            f"the reference's Sequential networks have an importer")
     want = model.state_dict()
     out = {}
     for side, entries in sides.items():
@@ -180,9 +194,12 @@ def reference_state_to_port(torch_sd, model: VanillaACAI
 
 def load_torch_reference(path: str, state) -> Tuple[object, int]:
     """Restore a reference ``.models`` torch pickle into ``state``'s model
-    (in place); returns ``(state, epoch)``. The optimizer state is left
-    as it is (fresh)."""
+    (in place; the ACAI family's ``ae``, the critic untouched); returns
+    ``(state, epoch)``. The optimizer state is left as it is (fresh)."""
     raw = load_reference_pickle(path)
-    state.model.load_state_dict(
-        reference_state_to_port(raw["model_dict_ae"], state.model))
+    model = state.model
+    if isinstance(model, nn.ModuleDict):
+        model = model["ae"]
+    model.load_state_dict({**model.state_dict(), **reference_state_to_port(
+        raw["model_dict_ae"], model)})
     return state, int(raw.get("epoch", 0))

@@ -6,22 +6,68 @@ encodings); ``unpackb`` reads them back as
 ``flax.serialization.msgpack_restore`` does. Covered: maps, arrays
 (lists and tuples), str, bin (bytes), int, float, bool and nil, plus
 flax's extension types 1 (``np.ndarray``) and 3 (numpy scalar), each
-packing ``(shape, dtype.name, C-order bytes)``. Anything else raises;
-arrays over flax's 1 GiB chunk size are not written in chunks.
+packing ``(shape, dtype.name, C-order bytes)``. Anything else raises.
+
+Flax's chunked arrays: an array of more than ``MAX_CHUNK_SIZE`` bytes
+(flax's 1 GiB) that is a map value, or the whole tree, is written as
+``{"__msgpack_chunked_array__": True, "shape": {"0": …}, "chunks":
+{"0": flat chunk, …}}`` with ``MAX_CHUNK_SIZE // itemsize`` elements a
+chunk; flax builds these maps after its sorted tree copy, so their keys
+stay in insertion order. ``unpackb`` joins them back. ``pack_to``
+streams the encoding to a writer, array data without a copy, so a
+checkpoint of recipe-size VAE heads (two 4 GiB kernels) is not held
+twice in host memory; ``unpackb``'s arrays view its input.
 """
 from __future__ import annotations
 
 import struct
-from typing import Any, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 
 EXT_NDARRAY = 1
 EXT_NPSCALAR = 3
+MAX_CHUNK_SIZE = 2 ** 30  # flax.serialization.MAX_CHUNK_SIZE
+_CHUNK_MARK = "__msgpack_chunked_array__"
+
+
+class _Ordered(dict):
+    """A map written in insertion order (flax's chunk maps)."""
+
+
+def _chunk(arr: np.ndarray) -> _Ordered:
+    """flax.serialization._chunk: the chunked form of ``arr``."""
+    size = max(1, int(MAX_CHUNK_SIZE / arr.dtype.itemsize))
+    flat = arr.reshape(-1)
+    chunks = [flat[i:i + size] for i in range(0, flat.size, size)]
+    return _Ordered([
+        (_CHUNK_MARK, True),
+        ("shape", _Ordered((str(i), int(n)) for i, n in enumerate(arr.shape))),
+        ("chunks", _Ordered((str(i), c) for i, c in enumerate(chunks)))])
+
+
+def _maybe_chunked(v):
+    if isinstance(v, np.ndarray) and v.size * v.dtype.itemsize > MAX_CHUNK_SIZE:
+        return _chunk(v)
+    return v
+
+
+def _unchunk(tree):
+    """flax.serialization._unchunk_array_leaves_in_place."""
+    if not isinstance(tree, dict):
+        return tree
+    if _CHUNK_MARK in tree:
+        shape = tuple(tree["shape"][str(i)] for i in range(len(tree["shape"])))
+        chunks = [tree["chunks"][str(i)] for i in range(len(tree["chunks"]))]
+        return np.concatenate(chunks).reshape(shape)
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            tree[k] = _unchunk(v)
+    return tree
 
 
 def _head(out: bytearray, n: int, fix: int, fix_max: int,
-          codes: Tuple[int, int, int]) -> None:
+          codes: Tuple[Optional[int], int, int]) -> None:
     """A length header: the fix form when ``n < fix_max``, else the 8-,
     16- or 32-bit form (``None`` code: no 8-bit form)."""
     if n < fix_max:
@@ -63,9 +109,8 @@ def _pack_int(out: bytearray, v: int) -> None:
         raise ValueError(f"msgpack: int {v} too small")
 
 
-def _pack_ext(out: bytearray, code: int, data: bytes) -> None:
+def _ext_head(out: bytearray, code: int, n: int) -> None:
     fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
-    n = len(data)
     if n in fixed:
         out.append(fixed[n])
     elif n < 1 << 8:
@@ -73,21 +118,62 @@ def _pack_ext(out: bytearray, code: int, data: bytes) -> None:
     elif n < 1 << 16:
         out.append(0xC8)
         out += struct.pack(">H", n)
-    else:
+    elif n < 1 << 32:
         out.append(0xC9)
         out += struct.pack(">I", n)
+    else:
+        raise ValueError(f"msgpack: extension of {n} bytes too large")
     out += struct.pack(">b", code)
-    out += data
 
 
-def _ndarray_bytes(arr: np.ndarray) -> bytes:
+class _Sink:
+    """The encoding so far: small parts collect in ``buf``; array data
+    of ``LARGE`` bytes or more goes to ``write`` as a view of the array
+    (into ``buf`` when there is no writer)."""
+
+    LARGE = 1 << 20
+
+    def __init__(self, write: Optional[Callable] = None):
+        self.buf = bytearray()
+        self.write = write
+        self.written = 0
+
+    def data(self, view: memoryview) -> None:
+        if self.write is None or view.nbytes < self.LARGE:
+            self.buf += view
+            return
+        self.flush()
+        self.write(view)
+        self.written += view.nbytes
+
+    def flush(self) -> None:
+        if self.write is not None and self.buf:
+            self.write(self.buf)
+            self.written += len(self.buf)
+            self.buf = bytearray()
+
+
+def _pack_ndarray(w: _Sink, code: int, arr: np.ndarray) -> None:
+    """Extension ``code`` holding the msgpack of ``(shape, dtype.name,
+    C-order bytes)``, flax's ``_ndarray_to_bytes``."""
     if arr.dtype.hasobject or arr.dtype.isalignedstruct:
         raise ValueError("msgpack: object and structured dtypes are not "
                          "supported")
-    return packb((list(arr.shape), arr.dtype.name, arr.tobytes("C")))
+    if not arr.flags.c_contiguous:  # (ascontiguousarray makes 0-d 1-d)
+        arr = np.ascontiguousarray(arr)
+    prefix = bytearray((0x93,))
+    _pack(prefix, list(arr.shape))
+    _pack(prefix, arr.dtype.name)
+    _head(prefix, arr.nbytes, 0, 0, (0xC4, 0xC5, 0xC6))
+    _ext_head(w.buf, code, len(prefix) + arr.nbytes)
+    w.buf += prefix
+    w.data(memoryview(arr.reshape(-1)).cast("B"))
 
 
-def _pack(out: bytearray, obj: Any) -> None:
+def _pack(w, obj: Any) -> None:
+    """Encode ``obj`` into ``w``: a ``_Sink``, or a bytearray for the
+    array-free headers of ``_pack_ndarray``."""
+    out = w.buf if isinstance(w, _Sink) else w
     t = type(obj)
     if obj is None:
         out.append(0xC0)
@@ -105,41 +191,54 @@ def _pack(out: bytearray, obj: Any) -> None:
     elif t is bytes:
         _head(out, len(obj), 0, 0, (0xC4, 0xC5, 0xC6))
         out += obj
-    elif t is dict:
+    elif t in (dict, _Ordered):
         _head(out, len(obj), 0x80, 16, (None, 0xDE, 0xDF))
-        # flax copies the tree with jax.tree_util first, which sorts keys
-        for k in sorted(obj):
-            _pack(out, k)
-            _pack(out, obj[k])
+        # flax copies the tree with jax.tree_util first, which sorts keys;
+        # its chunk maps are made after the copy
+        for k in (sorted(obj) if t is dict else obj):
+            _pack(w, k)
+            _pack(w, _maybe_chunked(obj[k]))
     elif t in (list, tuple):
         _head(out, len(obj), 0x90, 16, (None, 0xDC, 0xDD))
         for v in obj:
-            _pack(out, v)
-    elif isinstance(obj, np.ndarray):
-        _pack_ext(out, EXT_NDARRAY, _ndarray_bytes(obj))
-    elif isinstance(obj, np.generic):
-        _pack_ext(out, EXT_NPSCALAR, _ndarray_bytes(np.asarray(obj)))
+            _pack(w, v)
+    elif isinstance(obj, (np.ndarray, np.generic)):
+        _pack_ndarray(w, EXT_NPSCALAR if isinstance(obj, np.generic)
+                      else EXT_NDARRAY, np.asarray(obj))
     else:
         raise TypeError(f"msgpack: cannot serialize {t.__name__}")
 
 
+def pack_to(write: Callable, obj: Any) -> int:
+    """Stream the encoding of ``obj`` to ``write`` (e.g. a file's
+    ``write``); returns the number of bytes written."""
+    w = _Sink(write)
+    _pack(w, _maybe_chunked(obj))
+    w.flush()
+    return w.written
+
+
 def packb(obj: Any) -> bytes:
-    out = bytearray()
-    _pack(out, obj)
-    return bytes(out)
+    w = _Sink()
+    _pack(w, _maybe_chunked(obj))
+    return bytes(w.buf)
 
 
 class _Reader:
-    def __init__(self, data: bytes):
-        self.data = memoryview(data)
+    def __init__(self, data, views: bool = False):
+        self.data = memoryview(data).cast("B")
         self.pos = 0
+        self.views = views  # bin payloads as views of ``data``
 
-    def take(self, n: int) -> bytes:
+    def view(self, n: int) -> memoryview:
         if self.pos + n > len(self.data):
             raise ValueError("msgpack: truncated data")
-        chunk = self.data[self.pos:self.pos + n].tobytes()
+        chunk = self.data[self.pos:self.pos + n]
         self.pos += n
         return chunk
+
+    def take(self, n: int) -> bytes:
+        return self.view(n).tobytes()
 
     def unpack(self, fmt: str):
         return struct.unpack(fmt, self.take(struct.calcsize(fmt)))[0]
@@ -159,8 +258,8 @@ _SIZED = {  # code → (kind, struct format of the length or value)
 _FIXEXT = {0xD4: 1, 0xD5: 2, 0xD6: 4, 0xD7: 8, 0xD8: 16}
 
 
-def _ndarray_from(data: bytes) -> np.ndarray:
-    shape, dtype, buf = unpackb(data)
+def _ndarray_from(data) -> np.ndarray:
+    shape, dtype, buf = _read(_Reader(data, views=True))
     if isinstance(dtype, bytes):
         dtype = dtype.decode()
     if dtype == "bfloat16":
@@ -168,7 +267,7 @@ def _ndarray_from(data: bytes) -> np.ndarray:
     return np.frombuffer(buf, dtype=np.dtype(dtype)).reshape(shape)
 
 
-def _ext(code: int, data: bytes):
+def _ext(code: int, data):
     if code == EXT_NDARRAY:
         return _ndarray_from(data)
     if code == EXT_NPSCALAR:
@@ -194,7 +293,7 @@ def _read(r: _Reader):
         return c == 0xC3
     if c in _FIXEXT:
         code = r.unpack(">b")
-        return _ext(code, r.take(_FIXEXT[c]))
+        return _ext(code, r.view(_FIXEXT[c]))
     if c not in _SIZED:
         raise ValueError(f"msgpack: unsupported type byte {c:#04x}")
     kind, fmt = _SIZED[c]
@@ -202,7 +301,7 @@ def _read(r: _Reader):
     if kind == "val":
         return n
     if kind == "bin":
-        return r.take(n)
+        return r.view(n) if r.views else r.take(n)
     if kind == "str":
         return r.take(n).decode("utf-8")
     if kind == "array":
@@ -210,12 +309,14 @@ def _read(r: _Reader):
     if kind == "map":
         return {_read(r): _read(r) for _ in range(n)}
     code = r.unpack(">b")
-    return _ext(code, r.take(n))
+    return _ext(code, r.view(n))
 
 
-def unpackb(data: bytes) -> Any:
+def unpackb(data) -> Any:
+    """The tree of ``data`` (bytes or a buffer), chunked arrays joined;
+    arrays view ``data``."""
     r = _Reader(data)
     obj = _read(r)
     if r.pos != len(r.data):
         raise ValueError("msgpack: extra bytes after the object")
-    return obj
+    return _unchunk(obj)

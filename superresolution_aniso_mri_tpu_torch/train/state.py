@@ -15,6 +15,11 @@ eps=1e-8))`` computes, each link present only when its option is set:
 The moments live as ``{parameter name: tensor}`` dicts beside an integer
 count; ``opt_state_tree`` / ``load_opt_state_tree`` map them to and from
 the flax state dict of the optax state (``models/convert.py`` names).
+
+``PartitionOptimizer`` is ``optax.multi_transform`` over the top-level
+parameter groups of the ACAI family's ``{"ae", "disc"}`` model (JAX
+``train/trainer.py:217-234``): one ``Optimizer`` per group, each
+clipping by its own global norm, with its own schedule and moments.
 """
 from __future__ import annotations
 
@@ -25,8 +30,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..models import VanillaACAI
-from ..models.convert import flax_moments_to_torch, torch_to_flax
+from ..device import byte_groups
+from ..models.convert import (flax_key, flax_moments_to_torch, set_in,
+                              torch_to_flax)
 
 B2 = 0.999
 EPS = 1e-8
@@ -104,7 +110,8 @@ class Optimizer:
                          {k: torch.zeros_like(v) for k, v in zeros.items()},
                          None if self.schedule.constant else 0)
 
-    def _clip(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+    def _clip_factors(self, grads: List[torch.Tensor]):
+        """(div, mul) of optax's clip: ``g / div * mul``."""
         norm = torch.linalg.vector_norm(torch.stack(
             torch._foreach_norm(grads)))
         keep = norm < self.max_grad_norm
@@ -112,7 +119,7 @@ class Optimizer:
         div = torch.where(keep, torch.ones_like(norm), norm)
         mul = torch.where(keep, torch.ones_like(norm),
                           torch.full_like(norm, self.max_grad_norm))
-        return torch._foreach_mul(torch._foreach_div(grads, div), mul)
+        return div, mul
 
     def host_scalars(self, state: AdamState) -> List[float]:
         """``[c1, c2, lr]`` of the next update: the bias corrections
@@ -123,6 +130,11 @@ class Optimizer:
         return [float(np.float32(1) - np.float32(self.b1) ** count),
                 float(np.float32(1) - np.float32(B2) ** count),
                 self.schedule(state.schedule_count or 0)]
+
+    def scalar_rows(self, state: AdamState, mix_weight: float) -> List[float]:
+        """The step's ``scalars``: ``host_scalars`` and the synthesis-loss
+        weight."""
+        return self.host_scalars(state) + [float(mix_weight)]
 
     @staticmethod
     def advance(state: AdamState) -> None:
@@ -139,28 +151,36 @@ class Optimizer:
         ``scalars`` (a float32 tensor on their device that starts with
         ``host_scalars(state)``). Device work only: it neither syncs with
         the host nor advances the counts, so a CUDA graph can capture it
-        and replay it with new ``scalars``."""
+        and replay it with new ``scalars``. The element-wise work runs in
+        groups of at most ``GROUP_BYTES`` (the same numbers as one pass)."""
         names = list(params)
-        p = [params[k] for k in names]
-        g = [grads[k] for k in names]
-        if self.max_grad_norm:
-            g = self._clip(g)
-        if self.weight_decay:
-            g = torch._foreach_add(g, p, alpha=self.weight_decay)
-        mu = [state.mu[k] for k in names]
-        nu = [state.nu[k] for k in names]
-        b1 = self.b1
-        # (1 - b) * g + b * m, as optax orders it
-        torch._foreach_mul_(mu, b1)
-        torch._foreach_add_(mu, torch._foreach_mul(g, 1.0 - b1))
-        torch._foreach_mul_(nu, B2)
-        torch._foreach_add_(nu, torch._foreach_mul(
-            torch._foreach_mul(g, g), 1.0 - B2))
+        clip = (self._clip_factors([grads[k] for k in names])
+                if self.max_grad_norm else None)
         c1, c2, lr = scalars[0], scalars[1], scalars[2]
-        denom = torch._foreach_sqrt(torch._foreach_div(nu, c2))
-        torch._foreach_add_(denom, EPS)
-        upd = torch._foreach_div(torch._foreach_div(mu, c1), denom)
-        torch._foreach_sub_(p, torch._foreach_mul(upd, lr))
+        b1 = self.b1
+        for group in byte_groups([params[k] for k in names]):
+            keys = [names[i] for i in group]
+            p = [params[k] for k in keys]
+            g = [grads[k] for k in keys]
+            if clip is not None:
+                g = torch._foreach_mul(torch._foreach_div(g, clip[0]),
+                                       clip[1])
+            if self.weight_decay:
+                g = torch._foreach_add(g, p, alpha=self.weight_decay)
+            mu = [state.mu[k] for k in keys]
+            nu = [state.nu[k] for k in keys]
+            # (1 - b) * g + b * m, as optax orders it
+            torch._foreach_mul_(mu, b1)
+            torch._foreach_add_(mu, torch._foreach_mul(g, 1.0 - b1))
+            torch._foreach_mul_(nu, B2)
+            torch._foreach_add_(nu, torch._foreach_mul(
+                torch._foreach_mul(g, g), 1.0 - B2))
+            del g
+            denom = torch._foreach_sqrt(torch._foreach_div(nu, c2))
+            torch._foreach_add_(denom, EPS)
+            upd = torch._foreach_div(torch._foreach_div(mu, c1), denom)
+            del denom
+            torch._foreach_sub_(p, torch._foreach_mul(upd, lr))
 
     def step(self, params: Dict[str, torch.Tensor],
              grads: Dict[str, torch.Tensor], state: AdamState) -> None:
@@ -184,8 +204,10 @@ class Optimizer:
         return {str(i): link for i, link in enumerate(links)}
 
     def load_opt_state_tree(self, tree: dict, state: AdamState,
-                            model: VanillaACAI) -> None:
-        """Set ``state`` from a tree of ``opt_state_tree``'s layout.
+                            params_like: Dict[str, torch.Tensor],
+                            cfg=None) -> None:
+        """Set ``state`` from a tree of ``opt_state_tree``'s layout, its
+        moments matched against ``params_like``'s names and shapes.
         Raises ValueError (changing nothing) when the layout differs:
         other links, another schedule or other parameter shapes."""
         keys = [str(i) for i in range(bool(self.max_grad_norm)
@@ -202,8 +224,8 @@ class Optimizer:
                 and isinstance(adam["0"], dict)
                 and sorted(adam["0"]) == ["count", "mu", "nu"]):
             raise ValueError("adam state does not match this optimizer")
-        mu = flax_moments_to_torch(adam["0"]["mu"], model.config)
-        nu = flax_moments_to_torch(adam["0"]["nu"], model.config)
+        mu = flax_moments_to_torch(adam["0"]["mu"], cfg, params_like)
+        nu = flax_moments_to_torch(adam["0"]["nu"], cfg, params_like)
         with torch.no_grad():
             for k in state.mu:
                 state.mu[k].copy_(mu[k])
@@ -211,6 +233,100 @@ class Optimizer:
         state.count = int(adam["0"]["count"])
         if sched:
             state.schedule_count = int(adam["1"]["count"])
+
+
+def _label(name: str) -> str:
+    return name.split(".", 1)[0]
+
+
+class PartitionOptimizer:
+    """``optax.multi_transform`` over top-level parameter groups: each
+    parameter named ``<label>.…`` is updated by ``groups[label]`` alone.
+    The state is ``{label: AdamState}``; ``scalars`` has one row per
+    group, in the order of ``groups``."""
+
+    def __init__(self, groups: Dict[str, Optimizer]):
+        self.groups = groups
+        self.names: Dict[str, List[str]] = {}
+
+    def split(self, named: Dict[str, torch.Tensor]):
+        out: Dict[str, Dict[str, torch.Tensor]] = {g: {} for g in self.groups}
+        for k, v in named.items():
+            out[_label(k)][k] = v
+        return out
+
+    def init(self, params: Dict[str, torch.Tensor]) -> Dict[str, AdamState]:
+        parts = self.split(params)
+        self.names = {g: list(parts[g]) for g in self.groups}
+        return {g: tx.init(parts[g]) for g, tx in self.groups.items()}
+
+    def scalar_rows(self, state, mix_weight: float) -> List[List[float]]:
+        return [tx.scalar_rows(state[g], mix_weight)
+                for g, tx in self.groups.items()]
+
+    def advance(self, state) -> None:
+        for g, tx in self.groups.items():
+            tx.advance(state[g])
+
+    @torch.no_grad()
+    def apply(self, params, grads, state, scalars: torch.Tensor) -> None:
+        p, g = self.split(params), self.split(grads)
+        for i, (label, tx) in enumerate(self.groups.items()):
+            tx.apply(p[label], g[label], state[label], scalars[i])
+
+    def _masked(self, label: str) -> dict:
+        """The params tree of every group but ``label`` with ``{}``
+        leaves: optax's ``MaskedNode`` in flax's state dict."""
+        tree: dict = {}
+        for g, names in self.names.items():
+            if g != label:
+                for name in names:
+                    _, path, leaf = flax_key(name)
+                    set_in(tree, path + (leaf,), {})
+        return tree
+
+    def opt_state_tree(self, state) -> dict:
+        """``{'inner_states': {label: {'inner_state': chain}}}`` where each
+        group's chain holds moment trees over ALL parameters, the other
+        groups' leaves masked to ``{}``."""
+        inner = {}
+        for label, tx in self.groups.items():
+            chain = tx.opt_state_tree(state[label])
+            masked = self._masked(label)
+            adam = chain[max(chain, key=int)]["0"]
+            for mom in ("mu", "nu"):
+                adam[mom] = {**masked, **adam[mom]}
+            inner[label] = {"inner_state": chain}
+        return {"inner_states": inner}
+
+    def load_opt_state_tree(self, tree: dict, state,
+                            params_like: Dict[str, torch.Tensor],
+                            cfg=None) -> None:
+        """Set ``state`` from a tree of ``opt_state_tree``'s layout;
+        raises ValueError (changing nothing) when it differs."""
+        if not (isinstance(tree, dict) and list(tree) == ["inner_states"]
+                and isinstance(tree["inner_states"], dict)
+                and sorted(tree["inner_states"]) == sorted(self.groups)
+                and all(isinstance(v, dict) and list(v) == ["inner_state"]
+                        for v in tree["inner_states"].values())):
+            raise ValueError("optimizer state is not a multi_transform over "
+                             f"the groups {sorted(self.groups)}")
+        staged = {label: dataclasses.replace(
+            state[label], mu={k: v.clone() for k, v in state[label].mu.items()},
+            nu={k: v.clone() for k, v in state[label].nu.items()})
+            for label in self.groups}
+        parts = self.split(params_like)
+        for label, tx in self.groups.items():
+            tx.load_opt_state_tree(
+                tree["inner_states"][label]["inner_state"], staged[label],
+                parts[label], cfg)
+        for label in self.groups:
+            with torch.no_grad():
+                for k in state[label].mu:
+                    state[label].mu[k].copy_(staged[label].mu[k])
+                    state[label].nu[k].copy_(staged[label].nu[k])
+            state[label].count = staged[label].count
+            state[label].schedule_count = staged[label].schedule_count
 
 
 def make_optimizer(lr: float, weight_decay: float = 0.0,
@@ -224,26 +340,30 @@ def make_optimizer(lr: float, weight_decay: float = 0.0,
 
 @dataclasses.dataclass
 class TrainState:
-    """A ``VanillaACAI`` (parameters and BatchNorm running statistics),
-    its optimizer and the optimizer's state, and the step count."""
+    """A model (parameters and BatchNorm running statistics; for the
+    ACAI family the ``{"ae", "disc"}`` ``ModuleDict``), its optimizer
+    and the optimizer's state, and the step count."""
 
-    model: VanillaACAI
-    tx: Optimizer
-    opt_state: AdamState
+    model: torch.nn.Module
+    tx: object
+    opt_state: object
     step: int = 0
 
     def params(self) -> Dict[str, torch.Tensor]:
         return dict(self.model.named_parameters())
 
 
-def create_train_state(model: VanillaACAI, lr: float,
+def create_train_state(model: torch.nn.Module, lr: float,
                        weight_decay: float = 0.0, momentum: float = 0.9,
                        cosine_steps: Optional[int] = None,
                        max_grad_norm: float = 0.0,
-                       warmup_steps: int = 0) -> TrainState:
-    """A fresh state around ``model`` (already on its device)."""
-    tx = make_optimizer(lr, weight_decay, momentum, cosine_steps,
-                        max_grad_norm, warmup_steps)
+                       warmup_steps: int = 0, tx=None) -> TrainState:
+    """A fresh state around ``model`` (already on its device); ``tx``
+    (e.g. a ``PartitionOptimizer``) replaces the ``make_optimizer``
+    chain of the other arguments."""
+    if tx is None:
+        tx = make_optimizer(lr, weight_decay, momentum, cosine_steps,
+                            max_grad_norm, warmup_steps)
     return TrainState(model, tx,
                       tx.init({k: p.detach() for k, p in
                                model.named_parameters()}))

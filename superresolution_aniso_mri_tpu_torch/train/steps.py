@@ -1,8 +1,10 @@
-"""Train and eval steps of the ``ae`` and ``ae_combined`` families.
+"""Train and eval steps of the ``ae``, ``ae_combined``, ``vae`` and
+``acai`` families.
 
 Port of ``superresolution_aniso_mri_tpu/train/steps.py`` (``LossConfig``,
 ``_recon_loss``, ``_mix_image_loss``, ``_wmse``, ``_train_latent_mix``,
-``_ae_losses``, ``make_train_step``, ``make_eval_step``), NCHW.
+``_ae_losses``, ``_vae_losses``, ``_acai_losses``, ``make_train_step``,
+``make_eval_step``), NCHW.
 
 Batch contract (``data/transforms.py::device_batch``):
   image          [2B, C, H, W]  from-slices ∥ to-slices
@@ -11,11 +13,27 @@ Batch contract (``data/transforms.py::device_batch``):
   is_inbetween   [B]            optional, weights the synthesis loss
   outer, outer2  [2B, C, H, W]  for train_latent_interp cubic / lanczos3
   loss_mask      [B, C, H, W]   optional (``use_masks``)
+  noise_eps      [2B, F]        vae family: the N(0, 1) reparametrisation
+                                noise (F = the heads' width, flax order)
+  noise_alpha    [B]            acai family: the critic's mixing
+                                coefficients, U[0, 0.5)
+
+JAX draws the noise inside its step from a threefry key; here it is an
+input, drawn by the trainer from its generator (``draw_noise``) or given
+by the caller, so a CUDA graph replays it from a static buffer like the
+rest of the batch.
 
 BatchNorm: the main encode → decode advances the running statistics
-once; the auxiliary passes (outward-neighbour encodes, the decode of the
-mix, the encodes of ``slice_between`` and of the synthesized slice)
-normalise with their own batch statistics and advance nothing.
+once (and the critic's pass over the regularised reconstruction, the
+critic's); the auxiliary passes (outward-neighbour encodes, the decode
+of the mix, the encodes of ``slice_between`` and of the synthesized
+slice, the critic's pass over the decoded mix) normalise with their own
+batch statistics and advance nothing.
+
+The ACAI model is the ``{"ae", "disc"}`` ``ModuleDict``; its step takes
+the gradient of ``loss_ae_full + loss_disc`` over both groups, which is
+the reference's twin backward, and the Laplacian term is logged but
+never enters it.
 
 Losses: MSE, or with ``lpips_params`` the VGG LPIPS (``perceptual``)
 or the encoder-backbone distance (``perceptual_enc``) for the
@@ -31,15 +49,16 @@ keys; ``loss_ae_dist_extra`` is logged weighted by ``mix_weight``.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from ..device import f32_exact
-from ..models import VanillaACAI
 from ..ops.lap_pyramid import lap_loss, lap_loss_per_sample
-from ..ops.losses import latent_mix, latent_mix_cubic, latent_mix_lanczos3, mse
+from ..ops.losses import (bce_sum_over_batch, kl_standard_normal, latent_mix,
+                          latent_mix_cubic, latent_mix_lanczos3, mse)
 from ..ops.lpips import lpips_distance
 from ..ops.metrics import ssim_volume
 from ..ops.perceptual import enc_lpips_distance
@@ -63,10 +82,11 @@ FAMILY_OF_MODEL = {
 
 @dataclasses.dataclass(frozen=True)
 class LossConfig:
-    """The JAX package's loss configuration, the fields of the ``ae``
-    families (same names and defaults). The other families' fields come
-    with ROADMAP item 9. ``lpips_dtype`` is the precision of the
-    perceptual distance's backbone ('float32' or 'bfloat16')."""
+    """The JAX package's loss configuration, the fields of the ``ae``,
+    ``vae`` and ``acai`` families (same names and defaults). The
+    multichannel and alpha families' fields come with ROADMAP item 9b.
+    ``lpips_dtype`` is the precision of the perceptual distance's
+    backbone ('float32' or 'bfloat16')."""
 
     model: str = "ae_combined"
     recon_loss: str = "mse"
@@ -76,6 +96,10 @@ class LossConfig:
     use_extra_latent_loss: bool = False
     use_masks: bool = False
     train_latent_interp: str = "linear"
+    vae_beta: float = 0.0
+    lamb: float = 1.0
+    lamb_reg_acai: float = 0.5
+    gamma_reg_acai: float = 0.2
     lpips_dtype: str = "float32"
 
     @property
@@ -90,10 +114,11 @@ class LossConfig:
 def check_supported(cfg: LossConfig) -> None:
     """Raise NotImplementedError for what the port does not train yet,
     naming the ROADMAP item that lifts it."""
-    if cfg.family not in ("ae", "ae_combined"):
+    if cfg.family not in ("ae", "ae_combined", "vae", "acai"):
         raise NotImplementedError(
             f"model {cfg.model!r} (family {cfg.family!r}): the port trains "
-            f"the ae and ae_combined families only (ROADMAP item 9)")
+            f"the ae, ae_combined, vae and acai families; the labeled "
+            f"multichannel and alpha families are ROADMAP item 9b")
     if cfg.train_latent_interp not in ("linear", "cubic", "lanczos3"):
         raise ValueError(f"unknown train_latent_interp "
                          f"{cfg.train_latent_interp!r}")
@@ -172,7 +197,7 @@ def _wmse(a: torch.Tensor, b: torch.Tensor,
                      sample_weight)
 
 
-def _train_latent_mix(model: VanillaACAI, cfg: LossConfig, z: torch.Tensor,
+def _train_latent_mix(model, cfg: LossConfig, z: torch.Tensor,
                       batch: Batch, train: bool = True) -> torch.Tensor:
     """The latent mix: 2-tap lerp, 4-tap Catmull-Rom (``outer``) or 6-tap
     lanczos3 (``outer`` and ``outer2``, encoded as ONE batch, so their
@@ -200,7 +225,27 @@ def _train_latent_mix(model: VanillaACAI, cfg: LossConfig, z: torch.Tensor,
     return latent_mix(z, batch["alpha_from"], batch["alpha_to"])
 
 
-def _ae_losses(model: VanillaACAI, cfg: LossConfig, lpips_params: Any,
+def _synthesis_terms(encode, cfg: LossConfig, lpips_params: Any,
+                     batch: Batch, mix_weight, s_mix, z_mix, z_ref,
+                     metrics: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The combined families' synthesis loss (and, with
+    ``use_extra_latent_loss``, the latent terms through ``encode``),
+    weighted by ``mix_weight``; logs its metrics into ``metrics``."""
+    sw = batch.get("is_inbetween")
+    loss_mix = _mix_image_loss(cfg, lpips_params, batch["slice_between"],
+                               s_mix, batch.get("loss_mask"),
+                               sample_weight=sw)
+    loss_extra = mix_weight * loss_mix
+    if cfg.use_extra_latent_loss:
+        z_syn = encode(s_mix)
+        l_lat2 = _wmse(z_ref, z_syn, sw)
+        loss_extra = loss_extra + 0.5 * (_wmse(z_ref, z_mix, sw) + l_lat2)
+        metrics["loss_latent_2"] = l_lat2
+    metrics["loss_ae_dist_extra"] = mix_weight * loss_mix
+    return loss_extra
+
+
+def _ae_losses(model, cfg: LossConfig, lpips_params: Any,
                batch: Batch,
                mix_weight) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, metrics) of the ``ae`` / ``ae_combined`` families."""
@@ -216,31 +261,99 @@ def _ae_losses(model: VanillaACAI, cfg: LossConfig, lpips_params: Any,
     metrics = {"loss_ae_dist": loss_dist, "loss_laploss": loss_lap,
                "loss_latent_1": mse(z_mix, z_ref)}
     if cfg.family == "ae_combined":
-        sw = batch.get("is_inbetween")
-        loss_mix = _mix_image_loss(cfg, lpips_params, between, s_mix,
-                                   batch.get("loss_mask"), sample_weight=sw)
-        loss_extra = mix_weight * loss_mix
-        if cfg.use_extra_latent_loss:
-            z_syn = model.encode(s_mix, train=True, update_stats=False)
-            l_lat2 = _wmse(z_ref, z_syn, sw)
-            loss_extra = loss_extra + 0.5 * (_wmse(z_ref, z_mix, sw) + l_lat2)
-            metrics["loss_latent_2"] = l_lat2
+        loss_extra = _synthesis_terms(
+            lambda img: model.encode(img, train=True, update_stats=False),
+            cfg, lpips_params, batch, mix_weight, s_mix, z_mix, z_ref,
+            metrics)
         loss_ae = loss_ae + loss_extra
-        metrics["loss_ae_dist_extra"] = mix_weight * loss_mix
         metrics["loss_ae_extra"] = loss_extra
     metrics["loss_ae"] = loss_ae
     return loss_ae, {k: v.detach() for k, v in metrics.items()}
+
+
+def _vae_losses(model, cfg: LossConfig, lpips_params: Any, batch: Batch,
+                mix_weight) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, metrics) of ``vae`` / ``vae_combined`` / ``vae2``: BCE +
+    β·KL through a sample of ``batch["noise_eps"]``; the mix and the
+    reference latents go through the mean."""
+    x = batch["image"]
+    mu, logvar = model.heads(model.encode(x, train=True))
+    z = model.unflatten(model.reparametrize(mu, logvar, batch["noise_eps"]))
+    out = model.decode(z, train=True)
+    recon = bce_sum_over_batch(out, x)
+    kl = kl_standard_normal(mu, logvar)
+    loss_ae = cfg.lamb * recon + cfg.vae_beta * kl
+    z_mix = latent_mix(z, batch["alpha_from"], batch["alpha_to"])
+    s_mix = model.decode(z_mix, train=True, update_stats=False)
+
+    def enc_mu(img):
+        return model.encode_mu(img, train=True, update_stats=False)
+
+    z_ref = enc_mu(batch["slice_between"])
+    metrics = {"loss_ae_dist": recon, "kl_loss": cfg.vae_beta * kl,
+               "loss_latent_1": mse(z_mix, z_ref)}
+    if cfg.combined:
+        loss_ae = loss_ae + _synthesis_terms(enc_mu, cfg, lpips_params, batch,
+                                             mix_weight, s_mix, z_mix, z_ref,
+                                             metrics)
+    metrics["loss_ae"] = loss_ae
+    return loss_ae, {k: v.detach() for k, v in metrics.items()}
+
+
+def _acai_losses(models, cfg: LossConfig, lpips_params: Any, batch: Batch,
+                 mix_weight) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, metrics) of ``acai`` / ``acai_combined``: the critic
+    regresses ``batch["noise_alpha"]`` from decoded latent mixes and
+    sees the gamma-regularised reconstruction; the loss is
+    ``loss_ae_full + loss_disc`` over both groups."""
+    ae, disc = models["ae"], models["disc"]
+    x = batch["image"]
+    z = ae.encode(x, train=True)
+    out = ae.decode(z, train=True)
+    _, loss_dist, loss_lap = _recon_loss(cfg, lpips_params, out, x)
+    d_reg = disc(out + cfg.gamma_reg_acai * (x - out), train=True)
+    loss_disc_l2 = (d_reg ** 2).mean()
+    alpha = batch["noise_alpha"]
+    out_mix = ae.decode(latent_mix(z, alpha, 1.0 - alpha), train=True,
+                        update_stats=False)
+    d_mix = disc(out_mix, train=True, update_stats=False)
+    loss_ae_l2 = (d_mix ** 2).mean()
+    loss_disc_dist = ((d_mix - alpha) ** 2).mean()
+    # the objective takes loss_ae_DIST only: the reference logs the
+    # Laplacian term but trains on ['loss_ae_dist']
+    loss_ae_full = loss_dist + cfg.lamb_reg_acai * loss_ae_l2
+    loss_disc = loss_disc_dist + loss_disc_l2
+    z_mix = latent_mix(z, batch["alpha_from"], batch["alpha_to"])
+    s_mix = ae.decode(z_mix, train=True, update_stats=False)
+
+    def enc(img):
+        return ae.encode(img, train=True, update_stats=False)
+
+    z_ref = enc(batch["slice_between"])
+    metrics = {"loss_ae_dist": loss_dist, "loss_laploss": loss_lap,
+               "loss_disc": loss_disc, "loss_latent_1": mse(z_mix, z_ref)}
+    if cfg.combined:
+        loss_ae_full = loss_ae_full + _synthesis_terms(
+            enc, cfg, lpips_params, batch, mix_weight, s_mix, z_mix, z_ref,
+            metrics)
+    metrics["loss_ae"] = loss_ae_full
+    return (loss_ae_full + loss_disc,
+            {k: v.detach() for k, v in metrics.items()})
 
 
 def _update(state: TrainState, cfg: LossConfig, lpips_params: Any,
             batch: Batch, scalars: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Forward, backward and the optimizer update of one step, in place
     on ``state``'s tensors; ``scalars`` is the device tensor ``[c1, c2,
-    lr, mix_weight]`` (``Optimizer.host_scalars`` and the synthesis-loss
-    weight). Device work only, so a CUDA graph can capture it."""
+    lr, mix_weight]`` (``Optimizer.scalar_rows``), one row per parameter
+    group for the ACAI family. Device work only, so a CUDA graph can
+    capture it."""
     params = state.params()
-    loss, metrics = _ae_losses(state.model, cfg, lpips_params, batch,
-                               scalars[3])
+    # looked up per call, so a family's loss can be swapped in tests
+    losses = {"vae": _vae_losses, "acai": _acai_losses}.get(cfg.family,
+                                                            _ae_losses)
+    loss, metrics = losses(state.model, cfg, lpips_params, batch,
+                           scalars.reshape(-1)[3])
     grads = torch.autograd.grad(loss, list(params.values()))
     state.tx.apply({k: p.data for k, p in params.items()},
                    dict(zip(params, grads)), state.opt_state, scalars)
@@ -250,10 +363,12 @@ def _update(state: TrainState, cfg: LossConfig, lpips_params: Any,
 def _scalar_rows(state: TrainState, mix_weight, n: int) -> List[List[float]]:
     """The ``scalars`` of the next ``n`` steps of ``state``, from its
     host counts, which stay as they are."""
-    opt = dataclasses.replace(state.opt_state)
+    opt = copy.copy(state.opt_state)
+    if isinstance(opt, dict):
+        opt = {k: copy.copy(v) for k, v in opt.items()}
     rows = []
     for _ in range(n):
-        rows.append(state.tx.host_scalars(opt) + [float(mix_weight)])
+        rows.append(state.tx.scalar_rows(opt, float(mix_weight)))
         state.tx.advance(opt)
     return rows
 
@@ -306,7 +421,7 @@ class _CapturedStep:
         self.state = state
         dev = _device_of(state)
         self.batch = {k: torch.empty_like(v) for k, v in like.items()}
-        self.scalars = torch.zeros(4, dtype=torch.float32, device=dev)
+        self.scalars = scalar_tensor(_scalar_rows(state, 0.0, 1)[0], dev)
         self.graph = torch.cuda.CUDAGraph()
         with f32_exact(), torch.cuda.graph(self.graph):
             metrics = _update(state, cfg, lpips_params, self.batch,
@@ -389,22 +504,37 @@ def make_eval_step(cfg: LossConfig, lpips_params: Any = None) -> Callable:
     """``eval_step(model, batch, mix_weight=None) → (metrics, aux)``:
     eval-mode forward and the training loss decomposition (with the
     perceptual weights ``lpips_params``, as ``make_train_step``); the
-    mix losses are weighted by ``mix_weight`` (None: 1)."""
+    mix losses are weighted by ``mix_weight`` (None: 1). The VAE family
+    goes through the mean and scores BCE; the ACAI family scores its
+    ``ae``."""
     check_supported(cfg)
 
     @torch.no_grad()
-    def eval_step(model: VanillaACAI, batch: Batch, mix_weight=None):
+    def eval_step(model, batch: Batch, mix_weight=None):
         w = 1.0 if mix_weight is None else mix_weight
         x = batch["image"]
         between = batch["slice_between"]
+        if cfg.family == "acai":
+            model = model["ae"]
         with f32_exact():
-            z = model.encode(x)
-            recon = model.decode(z)
-            loss_ae, loss_dist, lap = _recon_loss(cfg, lpips_params, recon,
-                                                  x)
-            z_mix = _train_latent_mix(model, cfg, z, batch, train=False)
+            if cfg.family == "vae":
+                z = model.encode_mu(x)
+                recon = model.decode(z)
+                loss_dist = bce_sum_over_batch(recon, x)
+                loss_ae, lap = loss_dist, loss_dist.new_zeros(())
+                z_mix = latent_mix(z, batch["alpha_from"], batch["alpha_to"])
+                z_ref = model.encode_mu(between)
+            else:
+                z = model.encode(x)
+                recon = model.decode(z)
+                loss_ae, loss_dist, lap = _recon_loss(cfg, lpips_params,
+                                                      recon, x)
+                z_mix = (_train_latent_mix(model, cfg, z, batch, train=False)
+                         if cfg.family in ("ae", "ae_combined")
+                         else latent_mix(z, batch["alpha_from"],
+                                         batch["alpha_to"]))
+                z_ref = model.encode(between)
             s_mix = model.decode(z_mix)
-            z_ref = model.encode(between)
             metrics = {"loss_ae": loss_ae, "loss_ae_dist": loss_dist,
                        "loss_laploss": lap,
                        "loss_latent_1": mse(z_mix, z_ref)}

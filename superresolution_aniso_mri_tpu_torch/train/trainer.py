@@ -2,9 +2,13 @@
 checkpoints and best-model aliases; ``get_trainer`` rebuilds one from an
 experiment directory.
 
-Port of the ``ae`` / ``ae_combined`` + ``VanillaACAI`` part of
-``superresolution_aniso_mri_tpu/train/trainer.py``. It writes the JAX
-package's experiment files under ``output_dir``:
+Port of the ``ae``, ``ae_combined``, ``vae`` and ``acai`` part of
+``superresolution_aniso_mri_tpu/train/trainer.py``, for every
+``ae_class`` of ``models.MODEL_REGISTRY`` but ``MultiChannelAE``
+(``-m vae``/``vae_combined`` route to ``VAE``, ``vae2`` to ``VAE2``; the
+ACAI family trains the ``{"ae", "disc"}`` ``ModuleDict`` under a
+``PartitionOptimizer``). It writes the JAX package's experiment files
+under ``output_dir``:
 
   settings.yaml                (``config/settings.py``)
   models/<epoch>.models (after ``epoch_threshold``), ae.models,
@@ -22,11 +26,14 @@ artifact for ``perceptual_enc``) and records their mode in
 ``state.params()``, so the optimizer never sees them.
 
 ``train_many`` runs N steps through ``make_multi_train_step`` (a CUDA
-graph replayed per step on the card). Not ported, and raising when
-training: other families and models (item 9), ``num_devices > 1``
-(item 11). An ``eval_mode`` trainer (serving, scoring) takes any
-experiment of a VanillaACAI model: it builds no train or eval step, so
-the training-only options of the experiment do not matter.
+graph replayed per step on the card). The step's random draws (ACAI's
+critic alphas, the VAE's reparametrisation noise) come from the
+trainer's own ``torch.Generator`` on its device, seeded from the seed,
+and enter the batch (``draw_noise``). Not ported, and raising when
+training: the labeled multichannel and alpha families and
+``MultiChannelAE`` (item 9b), ``num_devices > 1`` (item 11). An
+``eval_mode`` trainer (serving, scoring) builds no train or eval step,
+so the training-only options of the experiment do not matter.
 """
 from __future__ import annotations
 
@@ -41,26 +48,29 @@ import torch
 from ..config.settings import (apply_setting_defaults, load_settings,
                                save_experiment_settings)
 from ..device import resolve_device
-from ..models import AEConfig, VanillaACAI, flax_to_torch
+from ..models import (AEConfig, Discriminator, build_model, flax_to_torch,
+                      reset_parameters)
 from ..models.convert import torch_to_flax
 from ..ops.lpips import get_lpips_params, lpips_weights_info
 from ..ops.perceptual import get_enc_perceptual_params
 from .checkpoint import load_checkpoint, load_checkpoint_raw, save_checkpoint
 from .import_torch import is_torch_checkpoint
-from .state import create_train_state
+from .state import PartitionOptimizer, create_train_state, make_optimizer
 from .steps import (FAMILY_OF_MODEL, LossConfig, make_eval_step,
                     make_multi_train_step, make_train_step)
 
 
 def loss_config_from_args(args: Dict[str, Any]) -> LossConfig:
     """The JAX package's ``loss_config_from_args`` for the non-alpha
-    families (the alpha families raise, ROADMAP item 9)."""
+    families (the alpha and multichannel families raise, ROADMAP item
+    9b)."""
     model_name = args["model"]
-    if model_name.startswith("alpha") or args.get("dataset") == "ACDCLBL":
+    if (model_name.startswith("alpha") or model_name.startswith("multi")
+            or args.get("dataset") == "ACDCLBL"):
         raise NotImplementedError(
             f"model {model_name!r} on dataset {args.get('dataset')!r}: the "
             f"alpha and multichannel families are not ported yet (ROADMAP "
-            f"item 9)")
+            f"item 9b)")
     mix = args.get("image_mix_loss_func")
     if mix is None:
         mix = "perceptual" if args.get("use_percept_loss") else "mse"
@@ -79,6 +89,10 @@ def loss_config_from_args(args: Dict[str, Any]) -> LossConfig:
         use_extra_latent_loss=bool(args.get("use_extra_latent_loss", False)),
         use_masks=bool(args.get("get_masks", False)),
         train_latent_interp=tli,
+        vae_beta=float(args.get("vae_beta") or 0.0),
+        # an explicit lamb=0 (recon-term ablation) must survive
+        lamb=(1.0 if args.get("lamb") is None else float(args["lamb"])),
+        lamb_reg_acai=float(args.get("lamb_reg_acai", 0.5)),
         # bf16 model compute carries the LPIPS VGG stack with it
         lpips_dtype=str(args.get("compute_dtype") or "float32"),
     )
@@ -92,8 +106,6 @@ def weight_annealing_schedule(epochs: int, weight: float) -> np.ndarray:
 
 
 def _unsupported(args: Dict[str, Any], eval_mode: bool) -> Optional[str]:
-    if args.get("ae_class", "VanillaACAI") != "VanillaACAI":
-        return f"ae_class {args['ae_class']!r} (ROADMAP item 9)"
     if eval_mode:
         return None
     if int(args.get("num_devices") or 1) > 1:
@@ -101,16 +113,33 @@ def _unsupported(args: Dict[str, Any], eval_mode: bool) -> Optional[str]:
     return None
 
 
+def routed_ae_class(args: Dict[str, Any]) -> str:
+    """The model class of an experiment, routed as JAX routes it:
+    ``vae``/``vae_combined`` → VAE and ``vae2`` → VAE2 when ``ae_class``
+    is the default, ACDCLBL (not the alpha families) → MultiChannelAE."""
+    ae_class = args.get("ae_class") or "VanillaACAI"
+    flag = args.get("model", "ae")
+    if flag in ("vae", "vae_combined") and ae_class == "VanillaACAI":
+        ae_class = "VAE"
+    elif flag == "vae2" and ae_class == "VanillaACAI":
+        ae_class = "VAE2"
+    if args.get("dataset") == "ACDCLBL" and not flag.startswith("alpha"):
+        ae_class = "MultiChannelAE"
+    return ae_class
+
+
 class Trainer:
     """Model, optimizer, steps and loss bookkeeping of one experiment.
 
     ``device=None`` means the CUDA device (raises without one);
     ``seed`` (default ``args["seed"]``, else 0) seeds the weights through
-    ``VanillaACAI.reset_parameters`` on a CPU ``torch.Generator``.
-    ``eval_mode=True`` (serving and scoring) builds no train or eval
-    step. The serving surface of ``infer.create_super_volume(s)``
-    (``model_config``, ``device``, ``_ae_model()``, ``_ae_params()``,
-    ``params_sr``, ``synth_cache``) is the one of ``ServingModel``."""
+    ``models.reset_parameters`` on a CPU ``torch.Generator`` (the Dense
+    heads on the device, from one draw of it) and the step noise through
+    a generator on the device. ``eval_mode=True`` (serving and scoring)
+    builds no train or eval step. The serving surface of
+    ``infer.create_super_volume(s)`` (``model_config``, ``device``,
+    ``_ae_model()``, ``_ae_params()``, ``params_sr``, ``synth_cache``)
+    is the one of ``ServingModel``."""
 
     params_sr = None
     tb_writer = None
@@ -137,9 +166,17 @@ class Trainer:
         if needs_lpips:
             # which LPIPS weights engaged, so settings.yaml carries it
             self.args["lpips_mode"] = lpips_weights_info()["mode"]
-        model = VanillaACAI(self.model_config)
-        model.reset_parameters(torch.Generator().manual_seed(
-            seed if seed is not None else int(self.args.get("seed", 0))))
+        self.args["ae_class"] = routed_ae_class(self.args)
+        seed = seed if seed is not None else int(self.args.get("seed", 0))
+        # built on the device: a recipe VAE head is 4 GiB
+        with torch.device(self.device):
+            model = build_model(self.args["ae_class"], self.model_config)
+            if self.family == "acai":
+                model = torch.nn.ModuleDict(
+                    {"ae": model, "disc": Discriminator(self.model_config)})
+        reset_parameters(model, torch.Generator().manual_seed(seed))
+        self.noise_generator = torch.Generator(
+            device=self.device).manual_seed(seed)
         cosine_steps = None
         if self.args.get("use_lr_scheduler"):
             lim = self.args.get("lr_iter_max")
@@ -148,12 +185,16 @@ class Trainer:
                     "--use_lr_scheduler needs --lr_iter_max (total "
                     "iterations of the cosine anneal)")
             cosine_steps = int(lim)
-        self.state = create_train_state(
-            model.to(self.device), float(self.args["lr"]),
-            float(self.args.get("weight_decay", 0.0)),
-            float(self.args.get("momentum", 0.9)), cosine_steps,
-            float(self.args.get("max_grad_norm", 0) or 0),
-            int(self.args.get("lr_warmup_steps", 0) or 0))
+        lr = float(self.args["lr"])
+        wd = float(self.args.get("weight_decay", 0.0))
+        clip = float(self.args.get("max_grad_norm", 0) or 0)
+        ae_tx = make_optimizer(lr, wd, float(self.args.get("momentum", 0.9)),
+                               cosine_steps, clip,
+                               int(self.args.get("lr_warmup_steps", 0) or 0))
+        # the critic's Adam keeps betas (0.9, 0.999) and a constant lr
+        tx = (PartitionOptimizer({"ae": ae_tx, "disc": make_optimizer(
+            lr, wd, 0.9, None, clip)}) if self.family == "acai" else ae_tx)
+        self.state = create_train_state(model, lr, tx=tx)
         if not eval_mode:
             self.train_step = make_train_step(self.loss_config,
                                               self.lpips_params)
@@ -189,7 +230,7 @@ class Trainer:
             self.args.setdefault("dir_images", self.dir_images)
 
     @property
-    def model(self) -> VanillaACAI:
+    def model(self) -> torch.nn.Module:
         return self.state.model
 
     @property
@@ -220,12 +261,27 @@ class Trainer:
             return float(self.loss_weights[idx])
         return float(self.args.get("ex_loss_weight1", 0.001))
 
+    def draw_noise(self, batch: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+        """``batch`` with the step's random draws of its family from the
+        trainer's generator: ACAI's ``noise_alpha`` ~ U[0, 0.5) [B], the
+        VAE's ``noise_eps`` ~ N(0, 1) [2B, heads' width]; the batch
+        itself for the other families."""
+        b = batch["slice_between"].shape[0]
+        kw = dict(generator=self.noise_generator, device=self.device)
+        if self.family == "acai":
+            return {**batch, "noise_alpha": torch.rand(b, **kw) / 2.0}
+        if self.family == "vae":
+            width = self._ae_model().encoder_mu.weight.shape[0]
+            return {**batch, "noise_eps": torch.randn(2 * b, width, **kw)}
+        return batch
+
     def train(self, batch: Dict[str, torch.Tensor]):
         """One optimizer step on a device batch; its metrics are kept as
         device tensors until the epoch flush."""
         self._iters += 1
-        self.state, metrics = self.train_step(self.state, batch,
-                                              self._mix_weight())
+        self.state, metrics = self.train_step(
+            self.state, self.draw_noise(batch), self._mix_weight())
         self._ema_step(1)
         for k, v in metrics.items():
             self.losses[k].append(v)
@@ -241,8 +297,9 @@ class Trainer:
                 self.loss_config, self.lpips_params, device=self.device)
         n = len(batches)
         self._iters += n
-        self.state, metrics = self._multi_step(self.state, batches,
-                                               self._mix_weight())
+        self.state, metrics = self._multi_step(
+            self.state, [self.draw_noise(b) for b in batches],
+            self._mix_weight())
         self._ema_step(n)
         for k, v in metrics.items():
             self.losses[k].extend(v.unbind())
@@ -272,13 +329,15 @@ class Trainer:
         self.test_predictions = aux
         return metrics
 
-    def _ae_model(self) -> VanillaACAI:
-        return self.model
+    def _ae_model(self) -> torch.nn.Module:
+        """The autoencoder (the ACAI family's ``ae``)."""
+        model = self.model
+        return model["ae"] if isinstance(model, torch.nn.ModuleDict) else model
 
     def _ae_params(self):
-        """(parameters, buffers) of the model, as ``ServingModel``'s."""
-        return (dict(self.model.named_parameters()),
-                dict(self.model.named_buffers()))
+        """(parameters, buffers) of the autoencoder, as ``ServingModel``'s."""
+        ae = self._ae_model()
+        return dict(ae.named_parameters()), dict(ae.named_buffers())
 
     # ------------------------------------------------------------------
     # checkpoints and loss archives
@@ -306,7 +365,7 @@ class Trainer:
                 raw = load_checkpoint_raw(ema_path)
                 source = flax_to_torch(raw["model_dict_ae"],
                                        raw.get("batch_stats", {}),
-                                       self.model_config)
+                                       self.model_config, self.model)
             with torch.no_grad():
                 for k, v in self.ema_params.items():
                     v.copy_(source[k])

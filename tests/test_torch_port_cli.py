@@ -435,8 +435,8 @@ def test_plain_and_batched_sweeps_agree(dirs, tmp_path):
 def test_get_trainer_serves_any_vanilla_experiment(dirs, tmp_path):
     """An eval-mode trainer ignores what only training uses: a JAX
     experiment trained with the perceptual mix loss, EMA, TensorBoard
-    and 2 devices still serves in the port; a non-VanillaACAI one
-    raises."""
+    and 2 devices still serves in the port; a MultiChannelAE one (the
+    labeled model, not ported yet) raises."""
     from superresolution_aniso_mri_tpu_torch.train import get_trainer
 
     exper = tmp_path / "exper"
@@ -449,7 +449,7 @@ def test_get_trainer_serves_any_vanilla_experiment(dirs, tmp_path):
     trainer = get_trainer(str(exper), "caisr", device="cpu")
     assert trainer.eval_mode and trainer.epoch == 2
     assert not hasattr(trainer, "train_step")
-    settings["ae_class"] = "VAE"
+    settings["ae_class"] = "MultiChannelAE"
     path.write_text(yaml.safe_dump(settings, sort_keys=True))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 9b"):
         get_trainer(str(exper), "caisr", device="cpu")

@@ -421,16 +421,21 @@ def test_create_hr_images_with_lpips_on_card(cuda):
 
 
 def _clone_state(state):
-    """A TrainState of the same values in tensors of its own."""
+    """A TrainState of the same values in tensors of its own (the ACAI
+    family's optimizer state is one AdamState per group)."""
     import copy
     import dataclasses
 
     from superresolution_aniso_mri_tpu_torch.train import TrainState
 
-    opt = dataclasses.replace(
-        state.opt_state,
-        mu={k: v.clone() for k, v in state.opt_state.mu.items()},
-        nu={k: v.clone() for k, v in state.opt_state.nu.items()})
+    def clone(st):
+        return dataclasses.replace(st, mu={k: v.clone()
+                                           for k, v in st.mu.items()},
+                                   nu={k: v.clone() for k, v in st.nu.items()})
+
+    opt = state.opt_state
+    opt = ({g: clone(st) for g, st in opt.items()} if isinstance(opt, dict)
+           else clone(opt))
     return TrainState(copy.deepcopy(state.model), state.tx, opt, state.step)
 
 
@@ -497,6 +502,39 @@ def test_graph_replay_matches_eager_steps(cuda, loss, monkeypatch):
             assert abs(float(got[k][i]) - float(v)) <= 1e-6 * abs(float(v)), k
     assert state.opt_state.count == eager_state.opt_state.count
     for (k, p), q in zip(state.model.state_dict().items(),
+                         eager_state.model.state_dict().values()):
+        assert float((p - q).abs().max()) <= 1e-6 * float(q.abs().max()), k
+
+
+@pytest.mark.parametrize("model", ["acai_combined", "vae_combined"])
+def test_family_graph_replay_matches_eager_steps(cuda, model, monkeypatch):
+    """The comparison families under ``make_multi_train_step``: each
+    step's noise (ACAI's alphas, the VAE's eps) is drawn once by the
+    trainer and copied into the captured step's static buffer like the
+    batch, so 4 replays equal 4 eager steps from the same state, batches
+    and draws (1e-6 relative), both optimizer groups included."""
+    from superresolution_aniso_mri_tpu_torch.train import (
+        Trainer, make_multi_train_step, make_train_step)
+    from superresolution_aniso_mri_tpu_torch.train import steps as steps_mod
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    tr = Trainer(dict(model=model, lr=1e-4, image_mix_loss_func="mse",
+                      vae_beta=1.0, width=32, latent_width=8, depth=4,
+                      latent=6, use_batchnorm=True, use_sigmoid=True,
+                      max_grad_norm=1.0), device=cuda)
+    rng = np.random.RandomState(4)
+    multi = make_multi_train_step(tr.loss_config, device=cuda)
+    multi(tr.state, [tr.draw_noise(b) for b in _graph_batches(
+        rng, steps_mod.WARMUP_STEPS + 1, 2)], 0.3)
+    eager_state = _clone_state(tr.state)
+    batches = [tr.draw_noise(b) for b in _graph_batches(rng, 4, 2)]
+    _, got = multi(tr.state, batches, 0.3)
+    eager = make_train_step(tr.loss_config)
+    for i, b in enumerate(batches):
+        _, want = eager(eager_state, b, 0.3)
+        for k, v in want.items():
+            assert abs(float(got[k][i]) - float(v)) <= 1e-6 * abs(float(v)), k
+    for (k, p), q in zip(tr.state.model.state_dict().items(),
                          eager_state.model.state_dict().values()):
         assert float((p - q).abs().max()) <= 1e-6 * float(q.abs().max()), k
 

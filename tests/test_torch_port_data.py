@@ -252,13 +252,13 @@ def test_trainer_writes_the_jax_experiment_files(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra, item", [
-    (dict(model="vae"), "item 9"),
-    (dict(model="acai_combined"), "item 9"),
-    (dict(ae_class="MultiChannelAE"), "item 9"),
+    (dict(model="multichannel"), "item 9b"),
+    (dict(model="alpha_combined"), "item 9b"),
+    (dict(ae_class="MultiChannelAE"), "item 9b"),
     (dict(num_devices=2), "item 11"),
-    (dict(ae_class="VAE"), "item 9"),
-    (dict(model="alpha"), "item 9"),
-    (dict(dataset="ACDCLBL"), "item 9"),
+    (dict(model="vae2", ae_class="MultiChannelAE"), "item 9b"),
+    (dict(model="alpha"), "item 9b"),
+    (dict(dataset="ACDCLBL"), "item 9b"),
 ])
 def test_trainer_raises_for_what_is_not_ported(extra, item):
     from superresolution_aniso_mri_tpu_torch.train import Trainer

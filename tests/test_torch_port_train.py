@@ -373,8 +373,8 @@ def test_eval_step_matches_jax(case):
 
 
 @pytest.mark.parametrize("loss_kw, item", [
-    (dict(model="vae"), "item 9"),
-    (dict(model="acai_combined"), "item 9"),
+    (dict(model="multichannel"), "item 9b"),
+    (dict(model="alpha_combined"), "item 9b"),
 ])
 def test_unported_losses_raise(loss_kw, item):
     cfg = LossConfig(**{**LOSS, **loss_kw})

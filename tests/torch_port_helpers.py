@@ -5,11 +5,26 @@ train batches and train states of both packages."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from superresolution_aniso_mri_tpu.models import AEConfig as JaxConfig
 from superresolution_aniso_mri_tpu.models import VanillaACAI as JaxACAI
 
 SMALL = dict(width=32, latent_width=8, depth=4, latent=6)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch CPU thread while the tests of a module that imports
+    this fixture run: the tier-1 run has 6 workers on the machine's
+    cores, and each worker's torch would start a thread per core.
+    Restored after the module."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def jax_model(seed=0, **kw):
@@ -18,8 +33,30 @@ def jax_model(seed=0, **kw):
     seed, BN running stats away from the identity (which would hide a
     wrong mapping)."""
     model = JaxACAI(JaxConfig(**{**SMALL, **kw}))
+    params, stats = numpy_variables(model, seed)
+    return model, params, stats
+
+
+def jax_family_model(ae_class, seed=0, **kw):
+    """``jax_model`` for any class of the JAX registry, or
+    ``"Discriminator"``."""
+    from superresolution_aniso_mri_tpu.models import (Discriminator,
+                                                      build_model)
+
+    cfg = JaxConfig(**{**SMALL, **kw})
+    model = (Discriminator(cfg) if ae_class == "Discriminator"
+             else build_model(ae_class, cfg))
+    params, stats = numpy_variables(model, seed)
+    return model, params, stats
+
+
+def numpy_variables(model, seed):
+    """(params, batch_stats) of a flax model at ``SMALL``'s width from a
+    numpy seed (see ``jax_model``)."""
     shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0),
-                            jnp.zeros((1, 32, 32, model.config.colors)))
+                            jnp.zeros((1, model.config.width,
+                                       model.config.width,
+                                       model.config.colors)))
     rng = np.random.RandomState(seed)
 
     def fill(path, leaf):
@@ -32,7 +69,7 @@ def jax_model(seed=0, **kw):
         return (rng.randn(*leaf.shape) / np.sqrt(fan_in)).astype(np.float32)
 
     tree = jax.tree_util.tree_map_with_path(fill, shapes)
-    return model, tree["params"], tree.get("batch_stats", {})
+    return tree["params"], tree.get("batch_stats", {})
 
 
 class JaxServingStub:
