@@ -11,7 +11,9 @@ hand-written kernel against its plain PyTorch version.
                                                  # and phase 9's OASIS and
                                                  # 16 graph-replayed ones
                                                  # of phase 10's, 10 of
-                                                 # phase 11's acai
+                                                 # phase 11's acai, 10
+                                                 # eager and 16 replayed
+                                                 # of phase 12's
 
 Phases (any failure ends the run with a non-zero exit):
   1. device: the card's name and power limit (nvidia-smi);
@@ -108,13 +110,28 @@ Phases (any failure ends the run with a non-zero exit):
      scored on the validation patient (``create_hr_images``); 3
      small-config steps of each family on the card against the CPU with
      the same draws.
+ 12. the labeled cardiac path (ACDCLBL), on phase 8's data root: ED/ES
+     frames of ``LABELED_PATIENTS`` patients ([10, 216, 256] at 10 x
+     1.5625 x 1.5625 mm, phantom ``_gt`` maps in {0, 1, 2, 3}) written
+     beside phase 8's cines, which must read back unchanged;
+     train-cardiac -d ACDCLBL with the cardiac recipe's flags
+     (MultiChannelAE, multichannel_combined, width 128, latent 128,
+     depth 32, -b 12): 2 epochs eager, 1 with ``--get_masks``, 1 with
+     ``--steps_per_dispatch 8`` (ms/step, peak GiB), 8 replays against 8
+     eager steps (limit 1e-6 relative); 3 small-config steps on the card
+     against the CPU (limit 1e-5 relative); generate-hr-volumes of the
+     validation patient's frame with its ``_gt`` map (decoded labels in
+     {0, 1, 2, 3} on the output grid, s/volume); the decoded labels of
+     bf16 serving against float32's (share of equal voxels);
+     ``create_hr_images`` and find-best on the validation frames (SSIM
+     launches counted, each pair held against the plain version).
 The main path (serve linear → score) runs with every kernel launch count
 set to 0 just before it and read just after; so do the train phase's
 path (serve the trained checkpoint → score), each find-best sweep of
 phase 7, phase 8's find-best, phase 9's scoring of the perceptual
 checkpoint and of the baselines, phase 10's scoring of the fitted
-table and phase 11's scoring paths (every pair each scored held
-against the plain version). The line before the last lists every
+table, phase 11's and phase 12's scoring paths (every pair each scored
+held against the plain version). The line before the last lists every
 kernel with its check, launches (``launches``: the main path;
 ``launches_by_path``: every counted path) and times; the last line is
 the device summary.
@@ -122,6 +139,7 @@ the device summary.
 import argparse
 import contextlib
 import dataclasses
+import itertools
 import json
 import os
 import subprocess
@@ -142,7 +160,10 @@ KERNEL_SHAPES = ((HR_SLICES, HW, HW), (8, 256, 256), (5, 129, 97),
                  (8 * DS + 1, 64, 64), (2 * 67, 64, 64),
                  # phase 8's OASIS find-best: the validation volume's 44
                  # slices at ds 4 synthesised into 173 of 208 x 176
-                 (43 * 4 + 1, 208, 176))
+                 (43 * 4 + 1, 208, 176),
+                 # phase 12's scoring: a [10, 216, 256] ACDC frame at
+                 # 1.5625 mm resampled to 1.4 mm, its 9 on-grid slices
+                 (9, 241, 286))
 KERNEL_ATOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
@@ -186,6 +207,21 @@ LPIPS_CARD_RTOL = 1e-4
 SPD = 8
 GRAPH_RTOL = 1e-6
 FIT_STEPS = 300
+# phase 12: the labeled cardiac path (ACDCLBL). ED/ES frames at ACDC's
+# native spacing; 8 training patients so that one epoch of the recipe's
+# 12-slice batches has the 12 batches graph vs eager takes (4 for the
+# warm-up and capture, 8 compared); the README cardiac row's flags
+# without --train_latent_interp (JAX trains the multichannel families
+# through the 2-tap mix only), --epoch_threshold -1 for find-best.
+LABELED_PATIENTS, LABELED_SHAPE = 9, (10, 216, 256)
+LABELED_ARGV = (["-d", "ACDCLBL"]
+                + ACDC_ARGV[2:ACDC_ARGV.index("--train_latent_interp")]
+                + ["--epoch_threshold", "-1"])
+LABELED_CARD_RTOL = 1e-5
+# bf16 against float32 serving of an (almost untrained) model: the share
+# of voxels whose decoded class agrees; a broken label path would agree
+# by chance (~1/4 for 4 classes)
+LABELED_BF16_AGREEMENT = 0.5
 
 
 def log(msg: str) -> None:
@@ -945,7 +981,8 @@ def augment_timings(dev, gen_seed: int, card: str) -> dict:
 def _recipe_batches(trainer, dev, epoch: int = 0):
     """Device batches of ``trainer``'s recipe as ``run_training`` makes
     them (device slice cache, the random recipe, each batch made on the
-    training thread), for epoch ``epoch``'s augmentation stream."""
+    training thread), from epoch ``epoch``'s augmentation stream on, one
+    epoch after another."""
     from superresolution_aniso_mri_tpu_torch.cli.train_loop import (
         build_augment_config, epoch_generator)
     from superresolution_aniso_mri_tpu_torch.data import (
@@ -954,14 +991,22 @@ def _recipe_batches(trainer, dev, epoch: int = 0):
         get_datasets)
 
     args = trainer.args
+    masks = bool(args.get("get_masks"))
     sampler = maybe_device_cache(TripletSampler(
         get_datasets(args)[0], int(args["downsample_steps"]),
-        args["slice_selection"], pad_size=int(args["aug_patch_size"]),
-        seed=int(args["seed"])), "1", dev)
+        args["slice_selection"],
+        pad_size=int(args.get("aug_patch_size") or args["width"]),
+        seed=int(args["seed"]), use_masks=masks), "1", dev)
     aug = build_augment_config(args)
-    gen = epoch_generator(int(args["seed"]), epoch)
-    return (device_batch(raw, aug, dev, 2, generator=gen)
-            for raw in sampler.epoch_batches(int(args["batch_size"])))
+
+    def stream():
+        for e in itertools.count(epoch):
+            gen = epoch_generator(int(args["seed"]), e)
+            for raw in sampler.epoch_batches(int(args["batch_size"])):
+                yield device_batch(raw, aug, dev, 2, generator=gen,
+                                   with_mask=masks)
+
+    return stream()
 
 
 def profile_disk_steps(trainer, dev, path: str, steps: int = 10,
@@ -1955,6 +2000,291 @@ def check_families(tmp: str, seed: int, card: str, dev, mse_ms: float,
     return out
 
 
+def make_labeled_frames(root: str, seed: int) -> list:
+    """Phase 12's labeled ACDC tree beside phase 8's cines under
+    ``root``: ``LABELED_PATIENTS`` patients' ED/ES frames
+    (``patientXXX_frameYY.nii.gz`` of ``LABELED_SHAPE`` at ACDC's native
+    spacing) with phantom ``_gt`` maps in {0, 1, 2, 3} (the phantom's
+    intensity quantiles: spatially coherent like RV/MYO/LV masks), and
+    the patients that phase 8's ACDC split file does not list added to
+    its training split (phase 8's patients keep theirs). Returns the
+    split."""
+    from superresolution_aniso_mri_tpu_torch.config import (
+        load_string_lists, save_string_lists)
+
+    pids = [f"patient{i + 1:03d}" for i in range(LABELED_PATIENTS)]
+    jobs = []
+    for i, pid in enumerate(pids):
+        for fr in (1, 12):
+            img = phantom(seed + 500 + 10 * i + fr, *LABELED_SHAPE)
+            lbl = np.digitize(img, np.percentile(img, (60, 80, 92)))
+            d = os.path.join(root, "ACDC", "all_cardiac_phases", pid)
+            jobs.append((os.path.join(d, f"{pid}_frame{fr:02d}.nii.gz"),
+                         img * 400.0, ACDC_SPACING))
+            jobs.append((os.path.join(d, f"{pid}_frame{fr:02d}_gt.nii.gz"),
+                         lbl.astype(np.float32), ACDC_SPACING))
+    _write_volumes(jobs)
+    path = os.path.join(root, "ACDC", "train_val_test_split_sr.yaml")
+    split = load_string_lists(path)
+    listed = {p for ids in split.values() for p in ids}
+    split["training"] = list(split["training"]) + [p for p in pids
+                                                   if p not in listed]
+    save_string_lists(split, path)
+    return split
+
+
+def labeled_card_vs_cpu(seed: int, dev) -> float:
+    """3 small-config steps of ``multichannel_combined`` (with a loss
+    mask in the batch) on the card against the CPU from the same weights
+    and batches: the largest relative metric difference; raises past
+    ``LABELED_CARD_RTOL`` or when the parameters drift past
+    2·lr·steps."""
+    import torch
+
+    from superresolution_aniso_mri_tpu_torch.train import Trainer
+
+    lr, steps = 1e-5, 3
+    args = dict(model="ae_combined", dataset="ACDCLBL", lr=lr,
+                image_mix_loss_func="mse", seed=seed,
+                **dict(SMALL_CFG, colors=2))
+    card, cpu = Trainer(args, device=dev), Trainer(args, device="cpu")
+    rng = np.random.RandomState(seed + 12)
+    w = SMALL_CFG["width"]
+    rel = 0.0
+    for _ in range(steps):
+        def planes(n):
+            return torch.from_numpy(np.concatenate(
+                [rng.rand(n, 1, w, w), rng.randint(0, 4, (n, 1, w, w))],
+                axis=1).astype(np.float32))
+        batch = {"image": planes(8), "slice_between": planes(4),
+                 "alpha_from": torch.full((4,), 0.5),
+                 "alpha_to": torch.full((4,), 0.5),
+                 "loss_mask": torch.from_numpy(
+                     (rng.rand(4, 1, w, w) > 0.3).astype(np.float32))}
+        _, cm = card.train_step(card.state, {k: v.to(dev) for k, v in
+                                             batch.items()}, 0.3)
+        _, hm = cpu.train_step(cpu.state, batch, 0.3)
+        for k in hm:
+            rel = max(rel, abs(float(cm[k]) - float(hm[k]))
+                      / max(abs(float(hm[k])), 1e-12))
+    drift = max(float((p.detach().cpu() - q.detach()).abs().max())
+                for p, q in zip(card.model.parameters(),
+                                cpu.model.parameters()))
+    log(f"labeled: card vs CPU, {steps} steps of multichannel_combined "
+        f"{dict(SMALL_CFG, colors=2)}: max rel metric diff {rel:.3e} (limit "
+        f"{LABELED_CARD_RTOL}), max param diff {drift:.3e} (limit "
+        f"2·lr·steps = {2 * lr * steps:.1e})")
+    if not rel <= LABELED_CARD_RTOL or not drift <= 2 * lr * steps:
+        raise AssertionError("card and CPU multichannel training differ")
+    return rel
+
+
+def replay_ms(trainer, dev, steps: int = SPD) -> float:
+    """ms/step of ``steps`` replays of the train step that ``trainer``'s
+    ``--steps_per_dispatch`` run captured: one ``train_many`` over ready
+    recipe batches (``_recipe_batches``) after one untimed, CUDA events
+    around the second."""
+    import torch
+
+    batches = _recipe_batches(trainer, dev, epoch=5)
+    trainer.train_many([next(batches) for _ in range(steps)])
+    run = [next(batches) for _ in range(steps)]
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    trainer.train_many(run)
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / steps
+
+
+def check_labeled(tmp: str, seed: int, card: str, dev,
+                  profile_path=None) -> dict:
+    """Phase 12 (see the module docstring), on phase 8's data root in
+    ``tmp``; returns the SSIM launches of its scoring paths, the
+    kernel's largest error on the pairs they scored and the phase's
+    numbers. With ``profile_path``: 10 traced eager steps and 16
+    replayed ones (``profile_path + ".labeled.txt"`` and
+    ``".labeled_spd8.txt"``)."""
+    import torch
+
+    from superresolution_aniso_mri_tpu_torch.cli import entry
+    from superresolution_aniso_mri_tpu_torch.data.datasets import (
+        load_acdc_labeled_volumes, load_acdc_volumes)
+    from superresolution_aniso_mri_tpu_torch.evaluate import create_hr_images
+    from superresolution_aniso_mri_tpu_torch.infer import (ServingModel,
+                                                           create_super_volume)
+    from superresolution_aniso_mri_tpu_torch.train import get_trainer
+    from superresolution_aniso_mri_tpu_torch.utils import (read_image,
+                                                           write_image)
+
+    _free_cuda()
+    out: dict = {"launches": {}, "kernel_err": 0.0}
+    root = os.environ["SR_DATA_ROOT"]
+
+    def scored(name, fn):
+        res, n, err, secs = _counted_scoring(fn, f"phase 12 {name}")
+        out["launches"][name] = n
+        out["kernel_err"] = max(out["kernel_err"], err)
+        out[f"{name}_s"] = secs
+        return res
+
+    # 1. the labeled frames beside phase 8's cines, which must not change
+    cines = load_acdc_volumes("validation")
+    t0 = time.perf_counter()
+    split = make_labeled_frames(root, seed)
+    out["labeled_fabricate_s"] = time.perf_counter() - t0
+    again = load_acdc_volumes("validation")
+    if [v.patient_id for v in again] != [v.patient_id for v in cines] or \
+            not all(np.array_equal(a.image, b.image)
+                    for a, b in zip(again, cines)):
+        raise AssertionError("the labeled frames changed phase 8's ACDC "
+                             "cines")
+    log(f"labeled: {LABELED_PATIENTS} patients x ED/ES {LABELED_SHAPE} "
+        f"with _gt maps written in {out['labeled_fabricate_s']:.1f} s, "
+        f"split {json.dumps(split)}; phase 8's "
+        f"{len(cines)} validation cine frames read back unchanged")
+
+    # 2. train-cardiac -d ACDCLBL (the cardiac recipe's flags): eager 2
+    # epochs, --get_masks, --steps_per_dispatch 8. An epoch holds one
+    # dispatch of 8 and 5 eager steps, so the spd 8 run's step gaps
+    # (first dispatch left out) time eager steps: its ms/step is timed
+    # below on 8 replays of the step its run captured
+    runs = {}
+    for name, extra in (("lbl", ["-e", "2"]), ("lbl_masks", ["--get_masks"]),
+                        ("lbl_spd8", ["--steps_per_dispatch", str(SPD)])):
+        exper = os.path.join(tmp, name)
+        _free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        argv = LABELED_ARGV + extra + ["-o", tmp, "-id", name]
+        res = _train_timed(entry.train_cardiac, argv, exper)
+        out[f"{name}_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        trainer = res["trainer"]
+        if (trainer.family, trainer.args["ae_class"]) != (
+                "multichannel_combined", "MultiChannelAE"):
+            raise AssertionError(f"{name}: trained {trainer.family} "
+                                 f"{trainer.args['ae_class']}")
+        for k in (("cli_s", "steps", "dispatches") if name == "lbl_spd8"
+                  else ("ms_per_step", "ms_per_step_min", "cli_s", "steps",
+                        "dispatches")):
+            out[f"{name}_{k}"] = res[k]
+        losses = np.load(os.path.join(exper, "losses_train.npz"))
+        if not all(np.isfinite(losses[k]).all() for k in (
+                "loss_label", "loss_ae_extra", "loss_ae_dist_labels")):
+            raise AssertionError(f"{name}: label losses not finite")
+        hidden = ("trainer", "step_loss_ae") + (
+            ("ms_per_step", "ms_per_step_min") if name == "lbl_spd8" else ())
+        log(f"labeled {name}: " + json.dumps(
+            {k: v for k, v in res.items() if k not in hidden})
+            + f", peak {out[f'{name}_peak_gib']:.2f} GiB [{card}]")
+        runs[name] = res
+    if not runs["lbl_spd8"]["dispatches"] < runs["lbl_spd8"]["steps"]:
+        raise AssertionError("lbl_spd8 did not dispatch several steps")
+    out["lbl_spd8_ms_per_step"] = replay_ms(runs["lbl_spd8"]["trainer"], dev)
+    log(f"labeled: ms/step eager {out['lbl_ms_per_step']:.3f}, "
+        f"--get_masks {out['lbl_masks_ms_per_step']:.3f}, "
+        f"--steps_per_dispatch {SPD} {out['lbl_spd8_ms_per_step']:.3f} "
+        f"[{card}]")
+    if profile_path:
+        profile_disk_steps(runs["lbl"]["trainer"], dev,
+                           profile_path + ".labeled.txt")
+        profile_disk_steps(runs["lbl_spd8"]["trainer"], dev,
+                           profile_path + ".labeled_spd8.txt", steps=2 * SPD,
+                           spd=SPD)
+    graph = graph_vs_eager(runs["lbl_spd8"]["trainer"], dev)
+    out.update({f"lbl_{k}": v for k, v in graph.items()})
+    log(f"labeled: graph vs eager, {SPD} multichannel_combined steps: max "
+        f"rel loss diff {graph['graph_vs_eager_loss_rel']:.3e}, max |Δ| of "
+        f"the parameters {graph['graph_vs_eager_param_abs']:.3e} (rel "
+        f"{graph['graph_vs_eager_param_rel']:.3e}; limit {GRAPH_RTOL} "
+        f"relative)")
+    if not (graph["graph_vs_eager_loss_rel"] <= GRAPH_RTOL
+            and graph["graph_vs_eager_param_rel"] <= GRAPH_RTOL):
+        raise AssertionError("the replayed multichannel step differs from "
+                             "the eager")
+
+    del runs
+    _free_cuda()
+
+    # 3. card against CPU
+    out["card_vs_cpu_rel"] = labeled_card_vs_cpu(seed, dev)
+
+    # 4. generate with the validation patient's frame and its _gt map:
+    # decoded labels on the output grid; bf16 against f32 serving
+    exper = os.path.join(tmp, "lbl")
+    val_pid = split["validation"][0]
+    src = os.path.join(root, "ACDC", "all_cardiac_phases", val_pid)
+    inputs, gen_out = os.path.join(tmp, "lbl_in"), os.path.join(tmp,
+                                                                 "lbl_out")
+    os.makedirs(inputs, exist_ok=True)
+    for suffix in ("", "_gt"):
+        arr, spacing, _ = read_image(os.path.join(
+            src, f"{val_pid}_frame01{suffix}.nii.gz"))
+        write_image(os.path.join(inputs, f"{val_pid}{suffix}.nii.gz"), arr,
+                    spacing=spacing)
+    t0 = time.perf_counter()
+    entry.generate_hr_volumes(["--exper_dir", exper, "--data_input_dir",
+                               inputs, "--output_dir", gen_out,
+                               "--num_interpolations", "1"])
+    out["generate_s_per_volume"] = time.perf_counter() - t0
+    img = read_image(os.path.join(gen_out, f"{val_pid}_ni01.nii.gz"))[0]
+    lbl = read_image(os.path.join(gen_out, f"{val_pid}_ni01_gt.nii.gz"))[0]
+    grid = (2 * LABELED_SHAPE[0] - 1,) + LABELED_SHAPE[1:]
+    uniq = sorted(int(v) for v in np.unique(lbl))
+    log(f"labeled generate: image {img.shape}, labels {lbl.shape} "
+        f"{lbl.dtype} ids {uniq}, {out['generate_s_per_volume']:.2f} s "
+        f"[{card}]")
+    if img.shape != grid or lbl.shape != grid or not set(uniq) <= {
+            0, 1, 2, 3} or not np.isfinite(img).all():
+        raise AssertionError("generate did not write decoded labels on the "
+                             "output grid")
+    trainer = get_trainer(exper, "caisr")
+    val = load_acdc_labeled_volumes("validation")
+    vol = val[0]
+    serve = dict(alpha_range=[0.5], downsample_steps=2,
+                 generate_inbetween_slices=True, labels=vol.labels)
+    f32 = create_super_volume(trainer, vol.image, **serve)
+    cfg16 = dataclasses.replace(trainer.model_config,
+                                compute_dtype="bfloat16")
+    bf16 = create_super_volume(
+        ServingModel(cfg16, trainer.model.state_dict(), device=dev,
+                     ae_class="MultiChannelAE"), vol.image, **serve)
+    same = float(np.mean(bf16["upsampled_labels"] == f32["upsampled_labels"]))
+    out["bf16_label_agreement"] = same
+    out["bf16_image_max_abs_diff"] = float(np.abs(
+        bf16["upsampled_image"] - f32["upsampled_image"]).max())
+    log(f"labeled serve {vol.image.shape}: bf16 decoded labels equal the "
+        f"float32 ones on {same:.4f} of the voxels (limit "
+        f"{LABELED_BF16_AGREEMENT}), image max |Δ| "
+        f"{out['bf16_image_max_abs_diff']:.3e}")
+    if not same >= LABELED_BF16_AGREEMENT:
+        raise AssertionError("bf16 labels disagree with the float32 ones")
+
+    # 5. create_hr_images and find-best on the validation patient, SSIM
+    # counted and held against the plain version
+    hr_res = scored("labeled_create_hr_images",
+                    lambda: create_hr_images(trainer, val, 2))
+    agg = {k: hr_res["aggregate"][k][0] for k in ("ssim", "psnr")}
+    out["create_hr_images_s_per_volume"] = (
+        out["labeled_create_hr_images_s"] / len(val))
+    best = scored("labeled_find_best", lambda: entry.find_best_model(
+        ["--exper_dir", exper]))
+    log(f"labeled create_hr_images on {len(val)} validation frames "
+        f"{vol.image.shape}: {json.dumps(agg)}, "
+        f"{out['create_hr_images_s_per_volume']:.2f} s/volume; find-best "
+        f"epochs {best['epochs']}, SSIM {best['history']['ssim']}; launches "
+        f"{json.dumps(out['launches'])} [{card}]")
+    if out["launches"]["labeled_create_hr_images"] != len(val) \
+            or best["epochs"] != [0, 1] \
+            or out["launches"]["labeled_find_best"] != 2 * len(val) \
+            or not all(np.isfinite(v) for v in agg.values()):
+        raise AssertionError("phase 12 scoring did not score every "
+                             "validation frame through the SSIM kernel")
+    del trainer
+    _free_cuda()
+    log(f"labeled timings [{card}]: " + json.dumps(out))
+    return out
+
+
 def _kernel_kind(name: str) -> str:
     """Bucket of a device event by its kernel name."""
     low = name.lower()
@@ -2211,6 +2541,8 @@ def main() -> int:
         families = check_families(tmp, args.seed, card, dev,
                                   disk["oasis_cache_ms_per_step"],
                                   args.profile)
+        # ---- 12. the labeled cardiac path -----------------------------
+        labeled = check_labeled(tmp, args.seed, card, dev, args.profile)
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)  # name and power limit, as nvidia-smi prints them
@@ -2232,12 +2564,14 @@ def main() -> int:
                 if name != "model"),
             "fitted_create_hr_images": options["fitted_launches"],
             **{f"families_{k}": v
-               for k, v in families["launches"].items()}},
+               for k, v in families["launches"].items()},
+            **labeled["launches"]},
         "max_abs_err": max(kcheck["max_abs_err"],
                            disk["find_best_kernel_err"],
                            percept["percept_kernel_err"],
                            options["fitted_kernel_err"],
-                           families["kernel_err"]), "ok": True,
+                           families["kernel_err"],
+                           labeled["kernel_err"]), "ok": True,
         "ms": kernel_ms, "ms_cold": kernel_cold_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "bound_share": bound_ms / kernel_ms,

@@ -182,8 +182,9 @@ def _densify_file(trainer, path: str, output_dir: str, n: int,
 
     arr, spacing, affine = read_image(path)
     arr = arr.astype(np.float32)
-    # sibling label volume ('<name>_gt.nii.gz'): rides through synthesis
-    # (nearest-slice ride-along for the served models)
+    # sibling label volume ('<name>_gt.nii.gz'): rides through synthesis,
+    # decoded by a MultiChannelAE (ACDCLBL), a nearest-slice ride-along
+    # otherwise
     lbl_arr = None
     if label_suffix:
         lbl_path = _find_label_companion(path, label_suffix)
@@ -214,7 +215,9 @@ def _densify_file(trainer, path: str, output_dir: str, n: int,
     out_lbl_frames = [r["upsampled_labels"] for r in res_list]
     out = (out_frames[0] if arr.ndim == 3
            else np.stack(out_frames, axis=0))
-    # a label output only when INPUT labels existed
+    # a label output only when INPUT labels existed: a MultiChannelAE
+    # decodes labels from a zero label plane too, and those would be a
+    # segmentation nobody provided
     out_lbl = None
     if lbl_arr is not None and all(u is not None
                                    for u in out_lbl_frames):

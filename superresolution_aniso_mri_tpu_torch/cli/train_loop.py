@@ -26,10 +26,13 @@ card), the epoch's remainder through ``Trainer.train``.
 run; ``--log_tensorboard`` also logs the image grid and, every 10
 epochs, the parameter histograms.
 
-Not ported, and raising before anything is written: loss masks
-(``--get_masks``, ROADMAP item 9b), MNISTRoto's on-the-fly sampler (item
-15), multi-host runs (item 11), and what ``Trainer`` and
-``get_datasets`` refuse.
+``--get_masks`` (labeled datasets) samples each triplet with its
+between slice's loss mask as the last channel; it rides through the
+augmentation and reaches the step as ``batch["loss_mask"]``.
+
+Not ported, and raising before anything is written: MNISTRoto's
+on-the-fly sampler (item 15), multi-host runs (item 11), and what
+``Trainer`` and ``get_datasets`` refuse.
 """
 from __future__ import annotations
 
@@ -107,7 +110,14 @@ def epoch_generator(seed: int, epoch: int) -> torch.Generator:
 
 
 def _refuse_unported(merged: Dict) -> None:
-    """Raise for the options of the JAX loop the port does not run."""
+    """Raise for the options of the JAX loop the port does not run, and
+    for ``--get_masks`` on a dataset without labels (JAX's sampler raises
+    the same ValueError once the experiment directory is written)."""
+    if merged.get("get_masks") and merged["dataset"] != "ACDCLBL":
+        raise ValueError(
+            f"--get_masks requires labeled volumes (the loss masks are "
+            f"derived from RV/MYO/LV segmentations); dataset "
+            f"{merged['dataset']!r} carries no labels")
     if merged["dataset"] == "MNISTRoto":
         raise NotImplementedError(
             "MNISTRoto: the on-the-fly rotation-triplet sampler is not "
@@ -116,11 +126,6 @@ def _refuse_unported(merged: Dict) -> None:
             or merged.get("coordinator_address"):
         raise NotImplementedError(
             "multi-host training is not ported yet (ROADMAP item 11)")
-    if merged.get("get_masks"):
-        raise NotImplementedError(
-            "--get_masks: the loss masks (data/masks.py) need labeled "
-            "volumes, which come with the multichannel family (ROADMAP "
-            "item 9b)")
 
 
 def _generate_volume_previews(trainer, val_vols, merged: Dict,
@@ -168,11 +173,14 @@ def run_training(args_dict: Dict, verbose: bool = True) -> Trainer:
     tli = str(merged.get("train_latent_interp") or "linear")
     latent_taps = {"cubic": 4, "lanczos3": 6}.get(tli, 2)
     seed = int(merged.get("seed", 0))
+    use_masks = bool(merged.get("get_masks"))
     sampler = TripletSampler(
         train_vols, ds, merged.get("slice_selection", "adjacent_plus"),
-        pad_size=pad, seed=seed, latent_taps=latent_taps)
+        pad_size=pad, seed=seed, use_masks=use_masks,
+        latent_taps=latent_taps)
     val_sampler = TripletSampler(val_vols, ds, "adjacent_plus",
                                  pad_size=pad, seed=seed + 1,
+                                 use_masks=use_masks,
                                  latent_taps=latent_taps)
     # device-resident slice cache: the padded stacks uploaded once, each
     # batch gathered on the device (the same batches as the host path)
@@ -245,7 +253,8 @@ def run_training(args_dict: Dict, verbose: bool = True) -> Trainer:
                 buf = []
                 for raw in sampler.epoch_batches(batch_size):
                     last_batch = device_batch(raw, aug_cfg, dev,
-                                              latent_taps, generator=gen)
+                                              latent_taps, generator=gen,
+                                              with_mask=use_masks)
                     if spd <= 1:
                         trainer.train(last_batch)
                         _beat()
@@ -265,7 +274,7 @@ def run_training(args_dict: Dict, verbose: bool = True) -> Trainer:
             for _ in range(n_val):
                 val_batch = device_batch(
                     val_sampler.sample_batch(test_batch_size), val_cfg, dev,
-                    latent_taps)
+                    latent_taps, with_mask=use_masks)
                 trainer.validate(val_batch)
                 _beat()
             trainer.show_loss_on_tensorboard("train")

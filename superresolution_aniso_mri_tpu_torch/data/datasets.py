@@ -9,7 +9,8 @@ a thread pool over ``utils/nifti.py::read_image`` (the JAX package's
 native host loader is not ported). Split files are read and written
 without pyyaml (``config/settings.py``).
 
-ACDCLBL's labeled ACDC frames raise (ROADMAP item 9b). Not ported: the
+ACDCLBL reads the labeled ED/ES frames (``patientXXX_frameYY.nii.gz``
+and their ``_gt`` label maps) beside ACDC's 4D cines. Not ported: the
 eval-only loaders (sunnybrook, ARVC, SAX; item 10) and
 ``create_dhcp_dataset`` (item 12).
 """
@@ -27,8 +28,8 @@ from ..config.data_config import get_config
 from ..config.settings import load_string_lists, save_string_lists
 from ..utils.nifti import read_image, write_image
 from .synthetic import make_toy_dataset
-from .volume import (Volume, apply_2d_zoom_4d, create_lr_volume,
-                     rescale_intensities)
+from .volume import (Volume, apply_2d_zoom_3d, apply_2d_zoom_4d,
+                     create_lr_volume, rescale_intensities)
 
 
 # ---------------------------------------------------------------------------
@@ -348,6 +349,63 @@ def load_acdc_volumes(split: str = "training",
     return volumes
 
 
+def load_acdc_labeled_volumes(split: str = "training",
+                              limited_load: bool = False,
+                              src_path: Optional[str] = None) -> List[Volume]:
+    """ACDC's labeled ED/ES frames for the ACDCLBL multi-channel model
+    (reference: datasets/ACDC/data_with_labels.py:14-276), one ``Volume``
+    per frame with its ``labels``: every ``*frame*.nii.gz`` under the
+    ACDC root that is not a ``_gt`` map (so the ``_4d`` cines beside
+    them are not read), its ``_gt`` companion as int32 labels when there
+    is one. Both are resampled in-plane to 1.4 mm (the labels with an
+    order-0 lookup, no blur) and the image is rescaled to its 1st-99th
+    percentiles. Without a split file the default ACDC split keeps the
+    12 native-5 mm SR test patients out."""
+    cfg = get_config("ACDCLBL")
+    root = src_path or cfg.image_dir
+    img_files = [f for f in _find_files(root, ".nii.gz")
+                 if "_gt" not in f and "frame" in os.path.basename(f)]
+    if not img_files:
+        raise FileNotFoundError(f"no labeled ACDC frames under {root}")
+    pids = [_patient_id_from_file("ACDC", f).split("_")[0]
+            for f in img_files]
+    if not (cfg.split_file and os.path.isfile(
+            os.path.expanduser(cfg.split_file))):
+        splits = acdc_default_split(pids)
+    else:
+        splits = _split_patients(pids, cfg.split_file)
+    wanted = set(splits.get(split, []))
+    sel = [(p, f) for p, f in zip(pids, img_files) if p in wanted]
+    if limited_load:
+        sel = sel[:cfg.limited_load_max]
+    gt_of = {p: p.replace(".nii.gz", "_gt.nii.gz") for _, p in sel}
+    decoded = _read_images_parallel(
+        [p for _, p in sel] + [g for g in gt_of.values() if os.path.isfile(g)])
+    volumes = []
+    for _pid, path in sel:
+        arr, spacing, _ = decoded[path]
+        arr = arr.astype(np.float32)
+        spacing = np.asarray(spacing, np.float64)
+        labels = None
+        if gt_of[path] in decoded:
+            labels = decoded[gt_of[path]][0].astype(np.int32)
+        if cfg.voxel_spacing_resample is not None:
+            new_sp = np.asarray(cfg.voxel_spacing_resample, np.float64)
+            arr = apply_2d_zoom_3d(arr, spacing[-2:], new_sp)
+            if labels is not None:
+                labels = apply_2d_zoom_3d(labels, spacing[-2:], new_sp,
+                                          do_blur=False, order=0,
+                                          as_type=np.int32)
+            spacing = spacing.copy()
+            spacing[1:] = new_sp[-2:]
+        arr = rescale_intensities(arr, percs=(1, 99))
+        volumes.append(Volume(
+            image=arr, spacing=spacing,
+            patient_id=os.path.basename(path).replace(".nii.gz", ""),
+            labels=labels))
+    return volumes
+
+
 # ---------------------------------------------------------------------------
 # dispatcher of the train and find-best commands
 # ---------------------------------------------------------------------------
@@ -360,7 +418,7 @@ def get_datasets(args: Dict) -> Tuple[List[Volume], List[Volume]]:
     validation volumes of ``8 * downsample_steps + 1`` slices at
     ``aug_patch_size or width``, seeded from ``seed``. OASIS, dHCP, ADNI
     and brainMASI read their synthetic-LR volumes, ACDC and ACDCC their
-    4D cines, from ``$SR_DATA_ROOT``."""
+    4D cines, ACDCLBL its labeled ED/ES frames, from ``$SR_DATA_ROOT``."""
     dataset = args["dataset"]
     ds = int(args.get("downsample_steps") or 2)
     limited = bool(args.get("limited_load", False))
@@ -392,11 +450,9 @@ def get_datasets(args: Dict) -> Tuple[List[Volume], List[Volume]]:
         return train, val
 
     if dataset == "ACDCLBL":
-        raise NotImplementedError(
-            "ACDCLBL from disk: the labeled ACDC frames "
-            "(load_acdc_labeled_volumes) belong to the multichannel family, "
-            "which is not ported yet (ROADMAP item 9b); --use_synthetic_data "
-            "builds its toy volumes")
+        train = load_acdc_labeled_volumes("training", limited_load=limited)
+        val = load_acdc_labeled_volumes("validation", limited_load=limited)
+        return train, val
 
     if dataset in ("ACDC", "ACDCC"):
         train = load_acdc_volumes("training", limited_load=limited)

@@ -13,9 +13,9 @@ order, so the two paths give bitwise the same batches.
 stacks fit the budget: ``SR_DEVICE_CACHE_MB`` when it is set, else a
 quarter of the CUDA device's free memory (20 GB on an idle 80 GB card:
 the README's OASIS recipe, 200 training patients of 176 x 220² float32,
-needs 6.8 GB), else, on the CPU, the JAX package's 512 MB. Label and
-loss-mask channels (ACDCLBL, ``--get_masks``) are not ported (ROADMAP
-item 9b).
+needs 6.8 GB), else, on the CPU, the JAX package's 512 MB. Labeled
+samplers (ACDCLBL) also keep their label stacks, and ``--get_masks``
+their loss-mask stacks, on the device; the budget counts them.
 """
 from __future__ import annotations
 
@@ -33,14 +33,11 @@ CUDA_FREE_SHARE = 0.25        # of the card's free memory, for the cache
 
 class DeviceCachedSampler:
     """A ``TripletSampler`` whose batches carry a ``triplet`` gathered on
-    ``device`` ([B, P, P, k] float32, the host layout). Its draws are the
+    ``device`` ([B, P, P, C] float32, the host layout: image, then label
+    per slot, the between slice's loss mask last). Its draws are the
     wrapped sampler's, in the same order."""
 
     def __init__(self, sampler: TripletSampler, device):
-        if sampler.has_labels:
-            raise NotImplementedError(
-                "device data cache: label channels (ACDCLBL) are not ported "
-                "yet (ROADMAP item 9b)")
         self.s = sampler
         self.device = torch.device(device)
         counts = [p.shape[0] for p in sampler._padded]
@@ -50,9 +47,15 @@ class DeviceCachedSampler:
             ([0], np.cumsum(counts[:-1]))).astype(np.int64)
         # float32, as the host sampler's batches (the rescaled volumes
         # can be float64)
-        self.flat_img = torch.from_numpy(np.concatenate(
-            sampler._padded, axis=0).astype(np.float32, copy=False)).to(
-                self.device)
+        self.flat_img = self._upload(sampler._padded)
+        self.flat_lbl = (self._upload(sampler._padded_labels)
+                         if sampler.has_labels else None)
+        self.flat_mask = (self._upload(sampler._padded_masks)
+                          if sampler.use_masks else None)
+
+    def _upload(self, stacks) -> torch.Tensor:
+        return torch.from_numpy(np.concatenate(stacks, axis=0).astype(
+            np.float32, copy=False)).to(self.device)
 
     def __len__(self) -> int:
         return len(self.s)
@@ -69,8 +72,15 @@ class DeviceCachedSampler:
         slots = np.array([[self._base[sp["vi"]] + sp[k] for k in keys]
                           for sp in specs], np.int64)
         idx = torch.from_numpy(slots).to(self.device, non_blocking=True)
+        planes = self.flat_img[idx]                          # [B, k, P, P]
+        if self.flat_lbl is not None:
+            # slot-major: (image, label) per slot
+            planes = torch.stack([planes, self.flat_lbl[idx]],
+                                 dim=2).flatten(1, 2)
+        if self.flat_mask is not None:
+            planes = torch.cat([planes, self.flat_mask[idx[:, -1:]]], dim=1)
         return {
-            "triplet": self.flat_img[idx].permute(0, 2, 3, 1),
+            "triplet": planes.permute(0, 2, 3, 1),
             "alpha_from": np.array([sp["a_from"] for sp in specs],
                                    np.float32),
             "alpha_to": np.array([sp["a_to"] for sp in specs], np.float32),
@@ -93,8 +103,13 @@ class DeviceCachedSampler:
 
 def cache_nbytes(sampler: TripletSampler) -> int:
     """Bytes the cache would hold on the device for ``sampler`` (float32
-    slices)."""
-    return sum(p.size * 4 for p in sampler._padded)
+    slices, labels and masks)."""
+    stacks = list(sampler._padded)
+    if sampler.has_labels:
+        stacks += sampler._padded_labels
+    if sampler.use_masks:
+        stacks += sampler._padded_masks
+    return sum(p.size * 4 for p in stacks)
 
 
 def auto_budget_bytes(device) -> int:

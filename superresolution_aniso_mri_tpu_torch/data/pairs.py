@@ -4,8 +4,10 @@ A numpy copy of ``superresolution_aniso_mri_tpu/data/pairs.py``
 (``TripletSampler``, ``latent_taps`` 2/4/6). It draws from the same
 ``RandomState`` stream in the same order, so a seed gives bitwise the
 same batches as the JAX package's sampler. Batches are assembled with
-numpy (the JAX package's native gather gives the same bits); loss masks
-(``use_masks``) are not ported yet.
+numpy (the JAX package's native gather gives the same bits). Labeled
+volumes (ACDCLBL) pair a label plane with every image plane, and
+``use_masks`` (``--get_masks``) appends the between slice's loss mask
+(``data/masks.py``) as the last channel.
 """
 from __future__ import annotations
 
@@ -35,10 +37,6 @@ class TripletSampler:
                  pad_size: int | None = None,
                  seed: int = 1234, use_masks: bool = False,
                  latent_taps: int = 2):
-        if use_masks:
-            raise NotImplementedError(
-                "use_masks (--get_masks loss masks) is not ported yet: "
-                "they need labeled volumes (ROADMAP item 9b)")
         if slice_selection not in ("adjacent", "adjacent_plus", "mix"):
             raise ValueError(f"bad slice_selection {slice_selection!r}")
         if latent_taps not in (2, 4, 6):
@@ -91,6 +89,20 @@ class TripletSampler:
         self._padded_labels = (
             [pad_to_size(np.asarray(v.labels, np.float32), self.pad_size)
              for v in self.volumes] if self.has_labels else None)
+        # --get_masks: per-slice dilated loss masks from the labels
+        # (reference: datasets/ACDC/data4d_simple.py:454-502)
+        self.use_masks = bool(use_masks)
+        if self.use_masks:
+            if not self.has_labels:
+                raise ValueError(
+                    "--get_masks requires labeled volumes (the loss masks "
+                    "are derived from RV/MYO/LV segmentations); these "
+                    "volumes carry no labels")
+            from .masks import masks_for_volume
+            self._padded_masks = [
+                pad_to_size(masks_for_volume(
+                    np.asarray(v.labels, np.int32)), self.pad_size)
+                for v in self.volumes]
 
     def __len__(self) -> int:
         return len(self._idcs)
@@ -176,6 +188,11 @@ class TripletSampler:
                 chans += [img[s], lbl[s]]
         else:
             chans = [img[s] for s in slots]
+        if self.use_masks:
+            # mask of the between slice, appended as the LAST channel so
+            # it rides through the device-side augmentation with the
+            # triplet; the train loop splits it off
+            chans.append(self._padded_masks[vi][between])
         return chans
 
     def sample_item(self, idx: int) -> Dict[str, np.ndarray]:

@@ -456,8 +456,8 @@ def prepare_batch_septets(septet: torch.Tensor):
 
 
 def device_batch(raw: Dict, cfg: AugmentConfig, device, latent_taps: int = 2,
-                 generator: Optional[torch.Generator] = None
-                 ) -> Dict[str, torch.Tensor]:
+                 generator: Optional[torch.Generator] = None,
+                 with_mask: bool = False) -> Dict[str, torch.Tensor]:
     """A sampler batch (``triplet`` [B, H, W, kC]: numpy from
     ``TripletSampler``, or a tensor already on the device from
     ``DeviceCachedSampler``) as the train step's NCHW batch on ``device``:
@@ -466,7 +466,9 @@ def device_batch(raw: Dict, cfg: AugmentConfig, device, latent_taps: int = 2,
     its copy has completed), augment (random ops drawn from
     ``generator``), split into ``image`` / ``slice_between`` (+ ``outer``
     / ``outer2`` for 4 / 6 latent taps), with ``alpha_from``,
-    ``alpha_to``, ``is_inbetween``."""
+    ``alpha_to``, ``is_inbetween``. ``with_mask``: the last channel is
+    the loss mask (``TripletSampler(use_masks=True)``), which rode
+    through the augmentation and becomes ``loss_mask`` [B, 1, H, W]."""
     cuda = torch.device(device).type == "cuda"
 
     def put(a):
@@ -478,6 +480,9 @@ def device_batch(raw: Dict, cfg: AugmentConfig, device, latent_taps: int = 2,
 
     x = augment_batch(put(raw["triplet"]).permute(0, 3, 1, 2), cfg, generator)
     batch = {}
+    if with_mask:
+        batch["loss_mask"] = x[:, -1:]
+        x = x[:, :-1]
     if latent_taps == 6:
         (batch["image"], batch["outer"], batch["outer2"],
          batch["slice_between"]) = prepare_batch_septets(x)

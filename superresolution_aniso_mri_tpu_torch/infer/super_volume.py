@@ -23,9 +23,16 @@ of a ``width`` × ``width`` input: a volume whose stride-padded in-plane
 size is not ``width`` raises a ValueError before any device work. A
 ``VAE2`` latent is a flat vector, mixed the same way.
 
+``MultiChannelAE`` (ACDCLBL) encodes (image, label) planes: the labels
+ride along the kept grid (zeros, with a warning, when there are none)
+and the decode returns the image and ``argmax(soft_probs)`` as two
+planes through the same interleave; the class ids are never clamped and
+come back as ``upsampled_labels``, rounded to the input labels' dtype
+(int32 without input labels).
+
 Not ported in this slice (each raises): ``num_devices > 1``, the
-AE+CAISR combo (``trainer.params_sr``), the labeled multichannel model
-(ROADMAP item 9b) and the packed decoder (``packed=True``).
+AE+CAISR combo (``trainer.params_sr``) and the packed decoder
+(``packed=True``).
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ import numpy as np
 import torch
 
 from ..device import f32_exact
+from ..models.multi_channel import MultiChannelAE
 from ..ops.losses import (LANCZOS3_OFFSETS, catmull_rom_weights,
                           lanczos3_weights)
 from .latent_taps import (fitted_tap_weights, fitted_table_path,
@@ -67,11 +75,12 @@ def _chunked_call_pervol(fn, x: torch.Tensor,
 
 def model_label_semantics(trainer):
     """(needs_label_channel, decodes_labels): a ``colors >= 2`` encoder
-    takes [image, label] input planes; only the (not yet ported)
-    MultiChannelAE decodes class ids."""
+    takes [image, label] input planes; only ``MultiChannelAE`` decodes
+    class ids (a plain 2-channel AE's second output plane is an
+    intensity reconstruction, so its labels ride along instead)."""
     colors = int(getattr(getattr(trainer, "model_config", None),
                          "colors", 1) or 1)
-    return colors >= 2, False
+    return colors >= 2, isinstance(trainer._ae_model(), MultiChannelAE)
 
 
 def make_kept_label_channel(kept_images: np.ndarray, labels,
@@ -117,6 +126,21 @@ def clip_with_label_channel(vol: torch.Tensor,
         return torch.cat([vol[..., :1, :, :].clamp(0.0, 1.0),
                           vol[..., 1:, :, :]], dim=-3)
     return vol.clamp(0.0, 1.0)
+
+
+def latent_decoder(model):
+    """The decoder that serving uses: ``MultiChannelAE``'s decode as two
+    planes, the image and ``argmax(soft_probs)`` (the first maximum, as
+    ``jnp.argmax``) in the image's dtype; else ``decode``."""
+    if not isinstance(model, MultiChannelAE):
+        return model.decode
+
+    def decode(z: torch.Tensor) -> torch.Tensor:
+        out = model.decode(z)
+        ids = out["soft_probs"].argmax(dim=1, keepdim=True)
+        return torch.cat([out["image"], ids.to(out["image"].dtype)], dim=1)
+
+    return decode
 
 
 def latent_encoder(model):
@@ -174,7 +198,8 @@ def make_synthesis_core(model, decode_batch: Optional[int] = None,
         raise NotImplementedError(
             "packed=True: " + _NOT_PORTED.format(item="A11"))
     cfg = model.config
-    encode = latent_encoder(model)
+    encode, decode = latent_encoder(model), latent_decoder(model)
+    decodes_labels = isinstance(model, MultiChannelAE)
     if is_fitted_mode(latent_interp):
         table = load_latent_taps(fitted_table_path(latent_interp))
         tap_offsets = tuple(int(o) for o in table["offsets"])
@@ -237,12 +262,13 @@ def make_synthesis_core(model, decode_batch: Optional[int] = None,
         k1 = k - 1
         z_flat = z_mix.flatten(1, 2)                       # [B, k1*A, ...]
         if use_original:
-            dec = _chunked_call_pervol(model.decode, z_flat, decode_batch)
+            # MultiChannelAE: the kept (image, label) planes, the input
+            # labels verbatim
+            dec = _chunked_call_pervol(decode, z_flat, decode_batch)
             recon = kept
             interp = dec.unflatten(1, (k1, a_n))
         else:
-            dec = _chunked_call_pervol(model.decode,
-                                       torch.cat([z, z_flat], dim=1),
+            dec = _chunked_call_pervol(decode, torch.cat([z, z_flat], dim=1),
                                        decode_batch)
             recon = dec[:, :k]
             interp = dec[:, k:].unflatten(1, (k1, a_n))
@@ -252,7 +278,7 @@ def make_synthesis_core(model, decode_batch: Optional[int] = None,
         out = {"recon": recon, "interp": interp}
         if interleave:
             out["volume"] = clip_with_label_channel(
-                interleave_volume(recon, interp), False)
+                interleave_volume(recon, interp), decodes_labels)
         if single:
             out = {key: val[0] for key, val in out.items()}
         return out
@@ -465,7 +491,7 @@ def create_super_volume(trainer, images, alpha_range=None,
         images, remain = kept_slice_grid(images, downsample_steps)
 
     kept = images[:, None]                       # [K, 1, H, W]
-    needs_label_channel, _ = model_label_semantics(trainer)
+    needs_label_channel, decodes_labels = model_label_semantics(trainer)
     if needs_label_channel:
         lbl_in = make_kept_label_channel(
             images, labels, downsample_steps, remain, "create_super_volume")
@@ -487,8 +513,10 @@ def create_super_volume(trainer, images, alpha_range=None,
     out = core(torch.from_numpy(np.ascontiguousarray(kept)).to(dev),
                torch.from_numpy(alpha_range).to(dev),
                use_original=use_original, interleave=True)
-    # valid prefix of the padded interleaved volume, image channel
-    vol = out["volume"][:(k_true - 1) * (a_n + 1) + 1, 0]
+    # valid prefix of the padded interleaved volume: the image plane,
+    # and the decoded labels' plane of a MultiChannelAE
+    planes = 2 if decodes_labels else 1
+    vol = out["volume"][:(k_true - 1) * (a_n + 1) + 1, :planes]
     return _finalize_volume_outputs(
         _readback(vol, readback_dtype), orig_images=orig_images,
         labels=labels, alpha_range=alpha_range,
@@ -503,20 +531,36 @@ def _finalize_volume_outputs(new_volume: np.ndarray, *, orig_images, labels,
                              k_true: int,
                              orig_num_slices: int) -> Dict[str, np.ndarray]:
     """Host post-processing shared by create_super_volume(s): verbatim
-    tail re-append, clamp, pred_alphas and the label ride-along.
-    ``new_volume`` is the image channel [S', H, W] with the kept-slice
-    padding stripped (S' = (k_true-1)*(len(alpha_range)+1)+1)."""
+    tail re-append, clamp, pred_alphas, and the labels: decoded by a
+    MultiChannelAE, else riding along. ``new_volume`` is [S', P, H, W]
+    with the kept-slice padding stripped (S' =
+    (k_true-1)*(len(alpha_range)+1)+1): the image plane, and with P = 2
+    the decoded class ids."""
     a_n = int(len(alpha_range))
+    dec_labels = new_volume[:, 1] if new_volume.shape[1] >= 2 else None
+    new_volume = new_volume[:, 0]
     if generate_inbetween_slices and remain != 0:
         new_volume = np.concatenate([new_volume, orig_images[-remain:]],
                                     axis=0)
+        if dec_labels is not None:
+            # the verbatim tail keeps its input labels (zeros without)
+            tail = (np.asarray(labels, np.float32)[-remain:]
+                    if labels is not None
+                    else np.zeros((remain,) + dec_labels.shape[1:],
+                                  dec_labels.dtype))
+            dec_labels = np.concatenate([dec_labels, tail], axis=0)
     new_volume = np.clip(new_volume, 0.0, 1.0)
     k1 = k_true - 1
     pred_alphas = np.repeat(alpha_range[None, :], k1, axis=0).reshape(-1)
 
     # labels ride along by nearest-neighbour z lookup (round half up)
     upsampled_labels = None
-    if labels is not None:
+    if dec_labels is not None:
+        # integer class ids; rint guards a float round trip
+        out_dtype = (np.asarray(labels).dtype if labels is not None
+                     else np.int32)
+        upsampled_labels = np.rint(dec_labels).astype(out_dtype)
+    elif labels is not None:
         labels = np.asarray(labels)
         n_out = new_volume.shape[0]
         if n_out == labels.shape[0]:
@@ -582,7 +626,8 @@ def create_super_volumes(trainer, images_list: Sequence,
     alpha_range, downsample_steps = _alpha_grid(
         alpha_range, downsample_steps, generate_inbetween_slices)
     a_n = int(len(alpha_range))
-    needs_label_channel, _ = model_label_semantics(trainer)
+    needs_label_channel, decodes_labels = model_label_semantics(trainer)
+    planes = 2 if decodes_labels else 1
     depth = getattr(getattr(trainer, "model_config", None), "depth", 32)
 
     # per-volume prep mirrors create_super_volume exactly
@@ -620,7 +665,7 @@ def create_super_volumes(trainer, images_list: Sequence,
             vols = core(stack, alphas_dev, use_original=use_original,
                         interleave=True)["volume"]
             s_max = max((it[1]["k_true"] - 1) * (a_n + 1) + 1 for it in part)
-            vols = _readback(vols[:, :s_max, 0], readback_dtype)
+            vols = _readback(vols[:, :s_max, :planes], readback_dtype)
             for j, (_kept, meta) in enumerate(part):
                 s_j = (meta["k_true"] - 1) * (a_n + 1) + 1
                 results[meta["index"]] = _finalize_volume_outputs(

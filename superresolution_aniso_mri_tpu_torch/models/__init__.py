@@ -4,6 +4,7 @@ from .acai import (Decoder, Discriminator, Encoder, ResBlock, VanillaACAI,
                    lerp, reset_parameters, swap_halves)
 from .config import AEConfig
 from .convert import flax_to_torch, torch_to_flax
+from .multi_channel import MultiChannelAE
 from .vae import VAE, VAE2
 from .variants import LargerAE, VanillaACAIStrided
 
@@ -11,7 +12,7 @@ MODEL_REGISTRY = {
     "VanillaACAI": VanillaACAI,
     "VAE": VAE,
     "VAE2": VAE2,
-    "MultiChannelAE": None,
+    "MultiChannelAE": MultiChannelAE,
     "LargerAE": LargerAE,
     "VanillaACAIStrided": VanillaACAIStrided,
 }
@@ -29,16 +30,11 @@ def build_model(ae_class: str, config: AEConfig):
     if ae_class not in MODEL_REGISTRY:
         raise ValueError(f"unknown ae_class {ae_class!r}; known: "
                          f"{sorted(MODEL_REGISTRY)}")
-    cls = MODEL_REGISTRY[ae_class]
-    if cls is None:
-        raise NotImplementedError(
-            f"ae_class {ae_class!r}: the labeled multichannel model is not "
-            f"ported yet (ROADMAP item 9b)")
-    return cls(config)
+    return MODEL_REGISTRY[ae_class](config)
 
 
 __all__ = ["AEConfig", "Decoder", "Discriminator", "Encoder", "LargerAE",
-           "MODEL_REGISTRY", "ResBlock", "VAE", "VAE2", "VanillaACAI",
-           "VanillaACAIStrided", "build_model", "flax_to_torch", "lerp",
-           "model_config",
-           "reset_parameters", "swap_halves", "torch_to_flax"]
+           "MODEL_REGISTRY", "MultiChannelAE", "ResBlock", "VAE", "VAE2",
+           "VanillaACAI", "VanillaACAIStrided", "build_model",
+           "flax_to_torch", "lerp", "model_config", "reset_parameters",
+           "swap_halves", "torch_to_flax"]

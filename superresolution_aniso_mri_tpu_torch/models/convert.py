@@ -6,6 +6,8 @@ path maps to the port's module path component by component:
 
     Conv_i                      ↔ convs.i
     BatchNorm_i                 ↔ bns.i      (scale ↔ weight)
+    head_cls_bn (MultiChannelAE's class-head BatchNorm)
+                                ↔ head_cls_bn
     ConvTranspose_i             ↔ ups.i
     ResBlock_i/Conv_{0,1}       ↔ res.i.conv{0,1}
     Encoder_0 (the ACAI critic) ↔ encoder
@@ -45,6 +47,8 @@ _INDEXED = {"Conv": "convs", "BatchNorm": "bns", "ConvTranspose": "ups",
             "ResBlock": "res"}
 _FLAX_NAME = {v: k for k, v in _INDEXED.items()}
 _RENAMED = {"Encoder_0": "encoder"}
+# BatchNorms that flax names by their attribute, not BatchNorm_i
+_NAMED_BATCHNORMS = ("head_cls_bn",)
 _FLAX_RENAMED = {v: k for k, v in _RENAMED.items()}
 
 
@@ -159,7 +163,9 @@ def _flat_variables(params, batch_stats) -> Dict[str, _Leaf]:
     stats = dict(_flat_stats(batch_stats or {}))
     for key in flat:
         parts = key.split(".")
-        if len(parts) >= 3 and parts[-3] == "bns" and parts[-1] == "weight":
+        if parts[-1] == "weight" and (
+                (len(parts) >= 3 and parts[-3] == "bns")
+                or (len(parts) >= 2 and parts[-2] in _NAMED_BATCHNORMS)):
             mod = key[:-len(".weight")]
             if f"{mod}.running_mean" not in stats:
                 raise ValueError(
@@ -235,7 +241,8 @@ def flax_key(name: str) -> Tuple[str, Tuple[str, ...], str]:
     if leaf in ("running_mean", "running_var"):
         return "batch_stats", tuple(path), leaf[len("running_"):]
     if leaf == "weight":
-        leaf = "scale" if path[-1].startswith("BatchNorm_") else "kernel"
+        leaf = ("scale" if path[-1].startswith("BatchNorm_")
+                or path[-1] in _NAMED_BATCHNORMS else "kernel")
     return "params", tuple(path), leaf
 
 

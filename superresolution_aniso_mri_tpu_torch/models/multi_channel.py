@@ -1,24 +1,28 @@
-"""The half-stem encoder and the decoder trunk of the multi-channel
-family, NCHW.
+"""The image + segmentation autoencoder of the labeled cardiac path
+(ACDCLBL), NCHW: ``MultiChannelAE`` with its half-stem encoder and
+decoder trunk.
 
 Port of ``superresolution_aniso_mri_tpu/models/multi_channel.py``
-(``_HalfStemEncoder``, ``trunk_decoder_body``), which ``LargerAE``
-(``models/variants.py``) is built from. ``MultiChannelAE`` comes with the
-labeled path (ROADMAP item 9b).
+(reference: networks/acai_multi_channel.py:22-103). ``LargerAE``
+(``models/variants.py``) is built from the same encoder and trunk.
 
 Parameter names follow the flax modules' flat names: the encoder's
 ``stem``, ``Conv_i`` → ``convs.i``, ``BatchNorm_i`` → ``bns.i`` and
 ``head``; the trunk's ``Conv_0`` (the 1x1 latent expansion) and
 ``BatchNorm_0`` first, then one conv pair and BatchNorm per scale and
-the last conv, in call order.
+the last conv, in call order. ``MultiChannelAE``'s own layers keep
+their flax names: ``enc``, ``trunk``, ``head_image``, ``head_cls_a``,
+``head_cls_bn``, ``head_cls_b``.
 """
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .acai import BatchNorm, Conv, _leaky
+from .acai import BatchNorm, Conv, _leaky, reset_parameters
 from .config import AEConfig
 
 
@@ -102,3 +106,43 @@ class TrunkDecoder(nn.Module):
     def forward(self, z: torch.Tensor, train: bool = False,
                 update_stats: bool = True) -> torch.Tensor:
         return self.trunk(z, train, update_stats)
+
+
+class MultiChannelAE(nn.Module):
+    """encode / decode / forward over a ``HalfStemEncoder`` of
+    ``colors`` (image, label) input planes and a ``TrunkDecoder`` that
+    feeds two heads: ``head_image`` (3x3 to one plane, sigmoid) and the
+    class head ``head_cls_a`` (3x3 to ``depth``, LeakyReLU) →
+    ``head_cls_bn`` → ``head_cls_b`` (1x1 to ``nclasses``) → softmax over
+    the classes. ``decode`` returns ``{"image", "soft_probs"}``, both
+    float32. ``train`` and ``update_stats`` go to every BatchNorm, the
+    class head's included."""
+
+    def __init__(self, config: AEConfig):
+        super().__init__()
+        cfg = self.config = config
+        self.enc = HalfStemEncoder(cfg)
+        self.trunk = TrunkDecoder(cfg)
+        self.head_image = Conv(cfg.depth, 1, 3)
+        self.head_cls_a = Conv(cfg.depth, cfg.depth, 3)
+        self.head_cls_bn = BatchNorm(cfg.depth)
+        self.head_cls_b = Conv(cfg.depth, cfg.nclasses, 1)
+
+    def encode(self, x: torch.Tensor, train: bool = False,
+               update_stats: bool = True) -> torch.Tensor:
+        return self.enc(x, train, update_stats)
+
+    def decode(self, z: torch.Tensor, train: bool = False,
+               update_stats: bool = True) -> Dict[str, torch.Tensor]:
+        h = self.trunk(z, train, update_stats)
+        img = torch.sigmoid(self.head_image(h)).float()
+        c = _leaky(self.head_cls_a(h))
+        c = self.head_cls_b(self.head_cls_bn(c, train, update_stats))
+        return {"image": img, "soft_probs": torch.softmax(c, dim=1).float()}
+
+    def forward(self, x: torch.Tensor,
+                train: bool = False) -> Dict[str, torch.Tensor]:
+        return self.decode(self.encode(x, train), train)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        reset_parameters(self, generator)

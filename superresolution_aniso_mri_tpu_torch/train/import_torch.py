@@ -167,7 +167,9 @@ def reference_state_to_port(torch_sd, model: nn.Module
         raise ValueError(
             f"torch checkpoint has submodules {unknown} with no "
             f"counterpart (model sides: {model_sides}) — wrong ae_class "
-            f"for this checkpoint?")
+            f"for this checkpoint? (MultiChannelAE / ACDCLBL reference "
+            f"checkpoints are not importable: the decoder head structure "
+            f"differs)")
     missing = sorted(set(model_sides) - set(sides))
     if missing:
         raise ValueError(

@@ -1,10 +1,12 @@
-"""Train and eval steps of the ``ae``, ``ae_combined``, ``vae`` and
-``acai`` families.
+"""Train and eval steps of the ``ae``, ``ae_combined``, ``vae``,
+``acai`` and the labeled ``multichannel`` / ``multichannel_combined``
+families.
 
 Port of ``superresolution_aniso_mri_tpu/train/steps.py`` (``LossConfig``,
 ``_recon_loss``, ``_mix_image_loss``, ``_wmse``, ``_train_latent_mix``,
-``_ae_losses``, ``_vae_losses``, ``_acai_losses``, ``make_train_step``,
-``make_eval_step``), NCHW.
+``_ae_losses``, ``_vae_losses``, ``_acai_losses``,
+``_multichannel_losses``, ``make_train_step``, ``make_eval_step``),
+NCHW.
 
 Batch contract (``data/transforms.py::device_batch``):
   image          [2B, C, H, W]  from-slices ∥ to-slices
@@ -12,11 +14,17 @@ Batch contract (``data/transforms.py::device_batch``):
   alpha_from/alpha_to [B]
   is_inbetween   [B]            optional, weights the synthesis loss
   outer, outer2  [2B, C, H, W]  for train_latent_interp cubic / lanczos3
-  loss_mask      [B, C, H, W]   optional (``use_masks``)
+  loss_mask      [B, 1, H, W]   optional (``use_masks``)
   noise_eps      [2B, F]        vae family: the N(0, 1) reparametrisation
                                 noise (F = the heads' width, flax order)
   noise_alpha    [B]            acai family: the critic's mixing
                                 coefficients, U[0, 0.5)
+
+The multichannel families' images carry two planes, (image, label):
+the reconstruction and synthesis losses read plane 0, and the Dice terms
+take plane 1 truncated to int32 class ids. As in JAX they never read
+``loss_mask`` (``--get_masks`` loads it, the masked losses belong to the
+alpha families).
 
 JAX draws the noise inside its step from a threefry key; here it is an
 input, drawn by the trainer from its generator (``draw_noise``) or given
@@ -24,8 +32,9 @@ by the caller, so a CUDA graph replays it from a static buffer like the
 rest of the batch.
 
 BatchNorm: the main encode → decode advances the running statistics
-once (and the critic's pass over the regularised reconstruction, the
-critic's); the auxiliary passes (outward-neighbour encodes, the decode
+once (MultiChannelAE's class-head BatchNorm included; and the critic's
+pass over the regularised reconstruction, the critic's); the auxiliary
+passes (outward-neighbour encodes, the decode
 of the mix, the encodes of ``slice_between`` and of the synthesized
 slice, the critic's pass over the decoded mix) normalise with their own
 batch statistics and advance nothing.
@@ -56,6 +65,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..device import f32_exact
+from ..ops.dice import dice_loss
 from ..ops.lap_pyramid import lap_loss, lap_loss_per_sample
 from ..ops.losses import (bce_sum_over_batch, kl_standard_normal, latent_mix,
                           latent_mix_cubic, latent_mix_lanczos3, mse)
@@ -83,8 +93,8 @@ FAMILY_OF_MODEL = {
 @dataclasses.dataclass(frozen=True)
 class LossConfig:
     """The JAX package's loss configuration, the fields of the ``ae``,
-    ``vae`` and ``acai`` families (same names and defaults). The
-    multichannel and alpha families' fields come with ROADMAP item 9b.
+    ``vae``, ``acai`` and multichannel families (same names and
+    defaults). The alpha families' fields come with ROADMAP item 9c.
     ``lpips_dtype`` is the precision of the perceptual distance's
     backbone ('float32' or 'bfloat16')."""
 
@@ -100,6 +110,8 @@ class LossConfig:
     lamb: float = 1.0
     lamb_reg_acai: float = 0.5
     gamma_reg_acai: float = 0.2
+    nclasses: int = 4
+    dice_weight: float = 0.1
     lpips_dtype: str = "float32"
 
     @property
@@ -114,11 +126,10 @@ class LossConfig:
 def check_supported(cfg: LossConfig) -> None:
     """Raise NotImplementedError for what the port does not train yet,
     naming the ROADMAP item that lifts it."""
-    if cfg.family not in ("ae", "ae_combined", "vae", "acai"):
+    if cfg.family == "alpha":
         raise NotImplementedError(
-            f"model {cfg.model!r} (family {cfg.family!r}): the port trains "
-            f"the ae, ae_combined, vae and acai families; the labeled "
-            f"multichannel and alpha families are ROADMAP item 9b")
+            f"model {cfg.model!r} (family 'alpha'): the alpha-probe "
+            f"families are not ported yet (ROADMAP item 9c)")
     if cfg.train_latent_interp not in ("linear", "cubic", "lanczos3"):
         raise ValueError(f"unknown train_latent_interp "
                          f"{cfg.train_latent_interp!r}")
@@ -341,6 +352,47 @@ def _acai_losses(models, cfg: LossConfig, lpips_params: Any, batch: Batch,
             {k: v.detach() for k, v in metrics.items()})
 
 
+def _multichannel_losses(model, cfg: LossConfig, lpips_params: Any,
+                         batch: Batch, mix_weight
+                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, metrics) of ``multichannel`` / ``multichannel_combined``
+    (ACDCLBL): the reconstruction loss on the image plane plus
+    ``dice_weight`` · Dice of the class head against the label plane;
+    the combined family adds ``mix_weight`` · (the synthesis loss on the
+    image plane + the Dice of the mix's class head against the between
+    slice's labels). ``loss_ae`` is logged without the Dice term, which
+    is logged as ``loss_label``."""
+    x = batch["image"]                          # [2B, 2, H, W]
+    between = batch["slice_between"]            # [B, 2, H, W]
+    labels = x[:, 1].to(torch.int32)
+    z = model.encode(x, train=True)
+    out = model.decode(z, train=True)
+    loss_ae, loss_dist, loss_lap = _recon_loss(cfg, lpips_params,
+                                               out["image"], x[:, 0:1])
+    loss_labels = cfg.dice_weight * dice_loss(out["soft_probs"], labels,
+                                              cfg.nclasses)
+    total = loss_ae + loss_labels
+    z_mix = latent_mix(z, batch["alpha_from"], batch["alpha_to"])
+    s_mix = model.decode(z_mix, train=True, update_stats=False)
+    z_ref = model.encode(between, train=True, update_stats=False)
+    metrics = {"loss_ae_dist": loss_dist, "loss_laploss": loss_lap,
+               "loss_label": loss_labels,
+               "loss_latent_1": mse(z_mix, z_ref)}
+    if cfg.family == "multichannel_combined":
+        loss_mix = _mix_image_loss(cfg, lpips_params, between[:, 0:1],
+                                   s_mix["image"], None,
+                                   sample_weight=batch.get("is_inbetween"))
+        loss_mix_labels = dice_loss(s_mix["soft_probs"],
+                                    between[:, 1].to(torch.int32),
+                                    cfg.nclasses)
+        total = total + mix_weight * (loss_mix + loss_mix_labels)
+        metrics["loss_ae_dist_extra"] = mix_weight * loss_mix
+        metrics["loss_ae_dist_labels"] = mix_weight * loss_mix_labels
+        metrics["loss_ae_extra"] = mix_weight * (loss_mix + loss_mix_labels)
+    metrics["loss_ae"] = loss_ae
+    return total, {k: v.detach() for k, v in metrics.items()}
+
+
 def _update(state: TrainState, cfg: LossConfig, lpips_params: Any,
             batch: Batch, scalars: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Forward, backward and the optimizer update of one step, in place
@@ -350,8 +402,10 @@ def _update(state: TrainState, cfg: LossConfig, lpips_params: Any,
     capture it."""
     params = state.params()
     # looked up per call, so a family's loss can be swapped in tests
-    losses = {"vae": _vae_losses, "acai": _acai_losses}.get(cfg.family,
-                                                            _ae_losses)
+    losses = {"vae": _vae_losses, "acai": _acai_losses,
+              "multichannel": _multichannel_losses,
+              "multichannel_combined": _multichannel_losses,
+              }.get(cfg.family, _ae_losses)
     loss, metrics = losses(state.model, cfg, lpips_params, batch,
                            scalars.reshape(-1)[3])
     grads = torch.autograd.grad(loss, list(params.values()))
@@ -506,8 +560,12 @@ def make_eval_step(cfg: LossConfig, lpips_params: Any = None) -> Callable:
     perceptual weights ``lpips_params``, as ``make_train_step``); the
     mix losses are weighted by ``mix_weight`` (None: 1). The VAE family
     goes through the mean and scores BCE; the ACAI family scores its
-    ``ae``."""
+    ``ae``; the multichannel families score the image plane, unmasked as
+    their train loss, and ``multichannel_combined`` adds the mix's Dice
+    (``loss_ae_dist_labels``) and the sum that selects ``caisr.models``
+    (``loss_ae_extra``)."""
     check_supported(cfg)
+    labeled = cfg.family.startswith("multichannel")
 
     @torch.no_grad()
     def eval_step(model, batch: Batch, mix_weight=None):
@@ -527,22 +585,34 @@ def make_eval_step(cfg: LossConfig, lpips_params: Any = None) -> Callable:
             else:
                 z = model.encode(x)
                 recon = model.decode(z)
-                loss_ae, loss_dist, lap = _recon_loss(cfg, lpips_params,
-                                                      recon, x)
+                if labeled:
+                    recon = recon["image"]
+                loss_ae, loss_dist, lap = _recon_loss(
+                    cfg, lpips_params, recon, x[:, 0:1] if labeled else x)
                 z_mix = (_train_latent_mix(model, cfg, z, batch, train=False)
                          if cfg.family in ("ae", "ae_combined")
                          else latent_mix(z, batch["alpha_from"],
                                          batch["alpha_to"]))
                 z_ref = model.encode(between)
-            s_mix = model.decode(z_mix)
+            s_mix = mix_out = model.decode(z_mix)
+            if labeled:
+                s_mix = mix_out["image"]
             metrics = {"loss_ae": loss_ae, "loss_ae_dist": loss_dist,
                        "loss_laploss": lap,
                        "loss_latent_1": mse(z_mix, z_ref)}
             if cfg.combined or cfg.image_mix_loss_func is not None:
+                ref, mask = ((between[:, 0:1], None) if labeled
+                             else (between, batch.get("loss_mask")))
                 loss_mix = _mix_image_loss(
-                    cfg, lpips_params, between, s_mix, batch.get("loss_mask"),
+                    cfg, lpips_params, ref, s_mix, mask,
                     sample_weight=batch.get("is_inbetween"))
                 metrics["loss_ae_dist_extra"] = w * loss_mix
+                if cfg.family == "multichannel_combined":
+                    mix_labels = dice_loss(mix_out["soft_probs"],
+                                           between[:, 1].to(torch.int32),
+                                           cfg.nclasses)
+                    metrics["loss_ae_dist_labels"] = w * mix_labels
+                    metrics["loss_ae_extra"] = w * (loss_mix + mix_labels)
         return metrics, {"reconstruction": recon,
                          "slice_inbetween_mix": s_mix, "z_mix": z_mix}
 

@@ -2,17 +2,19 @@
 checkpoints and best-model aliases; ``get_trainer`` rebuilds one from an
 experiment directory.
 
-Port of the ``ae``, ``ae_combined``, ``vae`` and ``acai`` part of
-``superresolution_aniso_mri_tpu/train/trainer.py``, for every
-``ae_class`` of ``models.MODEL_REGISTRY`` but ``MultiChannelAE``
-(``-m vae``/``vae_combined`` route to ``VAE``, ``vae2`` to ``VAE2``; the
-ACAI family trains the ``{"ae", "disc"}`` ``ModuleDict`` under a
-``PartitionOptimizer``). It writes the JAX package's experiment files
-under ``output_dir``:
+Port of ``superresolution_aniso_mri_tpu/train/trainer.py`` but its
+alpha families, for every ``ae_class`` of ``models.MODEL_REGISTRY``
+(``-m vae``/``vae_combined`` route to ``VAE``, ``vae2`` to ``VAE2``,
+``-d ACDCLBL`` to ``MultiChannelAE`` and the ``multichannel`` /
+``multichannel_combined`` families; the ACAI family trains the ``{"ae",
+"disc"}`` ``ModuleDict`` under a ``PartitionOptimizer``). It writes the
+JAX package's experiment files under ``output_dir``:
 
   settings.yaml                (``config/settings.py``)
   models/<epoch>.models (after ``epoch_threshold``), ae.models,
-  caisr.models, last.models    (``train/checkpoint.py`` layout)
+  caisr.models, last.models    (``train/checkpoint.py`` layout; the
+                               multichannel families select
+                               caisr.models on ``loss_ae_extra``)
   models/ema.models            (``ema_decay > 0``: the averaged weights)
   loss_iters.npz, losses_train.npz, losses_test.npz
   log_images/                  (``cli/train_loop.py`` writes the PNGs)
@@ -29,11 +31,14 @@ artifact for ``perceptual_enc``) and records their mode in
 graph replayed per step on the card). The step's random draws (ACAI's
 critic alphas, the VAE's reparametrisation noise) come from the
 trainer's own ``torch.Generator`` on its device, seeded from the seed,
-and enter the batch (``draw_noise``). Not ported, and raising when
-training: the labeled multichannel and alpha families and
-``MultiChannelAE`` (item 9b), ``num_devices > 1`` (item 11). An
-``eval_mode`` trainer (serving, scoring) builds no train or eval step,
-so the training-only options of the experiment do not matter.
+and enter the batch (``draw_noise``). Not ported, and raising: the
+alpha families (item 9c) and, when training, ``num_devices > 1`` (item
+11). A training trainer whose ``ae_class`` cannot feed its family's
+loss (``MultiChannelAE``'s ``{"image", "soft_probs"}`` outside the
+multichannel families, or another class in them) raises a ValueError;
+JAX builds it and fails at its first step. An ``eval_mode`` trainer
+(serving, scoring) builds no train or eval step, so the training-only
+options of the experiment do not matter.
 """
 from __future__ import annotations
 
@@ -62,15 +67,17 @@ from .steps import (FAMILY_OF_MODEL, LossConfig, make_eval_step,
 
 def loss_config_from_args(args: Dict[str, Any]) -> LossConfig:
     """The JAX package's ``loss_config_from_args`` for the non-alpha
-    families (the alpha and multichannel families raise, ROADMAP item
-    9b)."""
+    families: ``-d ACDCLBL`` trains ``multichannel_combined`` when the
+    model flag is a combined one, else ``multichannel``. The alpha
+    families raise (ROADMAP item 9c)."""
     model_name = args["model"]
-    if (model_name.startswith("alpha") or model_name.startswith("multi")
-            or args.get("dataset") == "ACDCLBL"):
+    if model_name.startswith("alpha"):
         raise NotImplementedError(
-            f"model {model_name!r} on dataset {args.get('dataset')!r}: the "
-            f"alpha and multichannel families are not ported yet (ROADMAP "
-            f"item 9b)")
+            f"model {model_name!r}: the alpha-probe families are not "
+            f"ported yet (ROADMAP item 9c)")
+    if args.get("dataset") == "ACDCLBL":
+        model_name = ("multichannel_combined" if "combined" in model_name
+                      else "multichannel")
     mix = args.get("image_mix_loss_func")
     if mix is None:
         mix = "perceptual" if args.get("use_percept_loss") else "mse"
@@ -93,6 +100,7 @@ def loss_config_from_args(args: Dict[str, Any]) -> LossConfig:
         # an explicit lamb=0 (recon-term ablation) must survive
         lamb=(1.0 if args.get("lamb") is None else float(args["lamb"])),
         lamb_reg_acai=float(args.get("lamb_reg_acai", 0.5)),
+        nclasses=int(args.get("nclasses", 4)),
         # bf16 model compute carries the LPIPS VGG stack with it
         lpips_dtype=str(args.get("compute_dtype") or "float32"),
     )
@@ -111,6 +119,19 @@ def _unsupported(args: Dict[str, Any], eval_mode: bool) -> Optional[str]:
     if int(args.get("num_devices") or 1) > 1:
         return "num_devices > 1 (ROADMAP item 11)"
     return None
+
+
+def _check_family_model(family: str, ae_class: str) -> None:
+    """Raise ValueError unless ``ae_class`` can feed ``family``'s loss:
+    the multichannel families train ``MultiChannelAE`` (its decode is
+    ``{"image", "soft_probs"}``) and no other family does."""
+    labeled = family.startswith("multichannel")
+    if labeled != (ae_class == "MultiChannelAE"):
+        raise ValueError(
+            f"family {family!r} cannot train ae_class {ae_class!r}: the "
+            f"multichannel families (dataset ACDCLBL) train MultiChannelAE, "
+            f"whose decode returns image and class probabilities, and no "
+            f"other family does")
 
 
 def routed_ae_class(args: Dict[str, Any]) -> str:
@@ -167,6 +188,8 @@ class Trainer:
             # which LPIPS weights engaged, so settings.yaml carries it
             self.args["lpips_mode"] = lpips_weights_info()["mode"]
         self.args["ae_class"] = routed_ae_class(self.args)
+        if not eval_mode:
+            _check_family_model(self.family, self.args["ae_class"])
         seed = seed if seed is not None else int(self.args.get("seed", 0))
         # built on the device: a recipe VAE head is 4 GiB
         with torch.device(self.device):
@@ -391,22 +414,29 @@ class Trainer:
         if self.loss_iters:
             self._iters = int(self.loss_iters[-1])
         thr = int(self.args.get("epoch_threshold", 100))
-        for key in ("loss_ae_dist", "loss_ae_dist_extra"):
+        for key in ("loss_ae_dist", self._caisr_selection_key()):
             hist = self.mean_losses_test.get(key, [])[max(thr + 1, 0):]
             if hist:
                 self._best_val[key] = float(np.min(hist))
 
     def save_best_val_model(self) -> None:
         """``ae.models`` on the lowest mean ``loss_ae_dist``,
-        ``caisr.models`` on the lowest mean ``loss_ae_dist_extra``, each
-        against the best seen when it was saved."""
+        ``caisr.models`` on the lowest mean of ``_caisr_selection_key``,
+        each against the best seen when it was saved."""
         for key, alias in (("loss_ae_dist", "ae.models"),
-                           ("loss_ae_dist_extra", "caisr.models")):
+                           (self._caisr_selection_key(), "caisr.models")):
             hist = self.mean_losses_test.get(key, [])
             if hist and hist[-1] <= self._best_val.get(key, np.inf):
                 self._best_val[key] = hist[-1]
                 self.save_models(os.path.join(self.dir_models, alias),
                                  self.epoch + 1)
+
+    def _caisr_selection_key(self) -> str:
+        """The validation metric behind ``caisr.models``: the
+        multichannel families' image + label synthesis sum
+        ``loss_ae_extra``, the others' ``loss_ae_dist_extra``."""
+        return ("loss_ae_extra" if self.family.startswith("multichannel")
+                else "loss_ae_dist_extra")
 
     def show_loss_on_tensorboard(self, eval_type: str = "train") -> None:
         """Flush the step losses to per-epoch means (float64 on the host),

@@ -228,11 +228,17 @@ def test_get_datasets_volumes_are_bitwise_jax(extra, tmp_path):
                 np.testing.assert_array_equal(g.labels, w.labels)
 
 
-def test_on_disk_datasets_raise_with_roadmap_item():
+def test_on_disk_datasets_raise_with_roadmap_item(tmp_path, monkeypatch):
+    """ACDCLBL from disk reads labeled frames: under a data root that has
+    none, both packages raise the same FileNotFoundError."""
+    from superresolution_aniso_mri_tpu.data.datasets import (
+        get_datasets as jax_get)
     from superresolution_aniso_mri_tpu_torch.data.datasets import get_datasets
 
-    with pytest.raises(NotImplementedError, match="item 9"):
-        get_datasets(dict(dataset="ACDCLBL", width=32))
+    monkeypatch.setenv("SR_DATA_ROOT", str(tmp_path))
+    for get in (get_datasets, jax_get):
+        with pytest.raises(FileNotFoundError, match="no labeled ACDC frames"):
+            get(dict(dataset="ACDCLBL", width=32))
 
 
 def test_volume_helpers_match_jax():

@@ -1,7 +1,8 @@
 """PyTorch port on the card: the CUDA SSIM kernel against its plain
 version, the serving, scoring and training entry points on CUDA against
-the same calls on the CPU, and the experiment-directory commands. Every test here needs an NVIDIA GPU and skips
-without one.
+the same calls on the CPU (the labeled MultiChannelAE path included),
+and the experiment-directory commands. Every test here needs an NVIDIA
+GPU and skips without one.
 
 This file imports neither JAX nor the JAX package, so it runs where
 only the port's dependencies are installed:
@@ -537,6 +538,96 @@ def test_family_graph_replay_matches_eager_steps(cuda, model, monkeypatch):
     for (k, p), q in zip(tr.state.model.state_dict().items(),
                          eager_state.model.state_dict().values()):
         assert float((p - q).abs().max()) <= 1e-6 * float(q.abs().max()), k
+
+
+def _labeled_batches(rng, n, mask=True):
+    """(image, label) batches on the card, with a loss mask."""
+    out = []
+    for _ in range(n):
+        def planes(k):
+            return np.concatenate([rng.rand(k, 1, 32, 32),
+                                   rng.randint(0, 4, (k, 1, 32, 32))], axis=1)
+        a_to = rng.uniform(0.1, 0.9, 2).astype(np.float32)
+        batch = {"image": planes(4), "slice_between": planes(2),
+                 "alpha_from": 1 - a_to, "alpha_to": a_to,
+                 "is_inbetween": np.array([1.0, 0.0])}
+        if mask:
+            batch["loss_mask"] = (rng.rand(2, 1, 32, 32) > 0.3)
+        out.append({k: torch.from_numpy(np.asarray(v, np.float32)).cuda()
+                    for k, v in batch.items()})
+    return out
+
+
+@pytest.mark.parametrize("model", ["multichannel", "ae_combined"])
+def test_multichannel_graph_replay_matches_eager_steps(cuda, model,
+                                                       monkeypatch):
+    """The labeled families (ACDCLBL) under ``make_multi_train_step``: the
+    Dice one-hot, the label cast and the class head's BatchNorm capture
+    without a host sync, and 4 replays equal 4 eager steps from the same
+    state and batches (1e-6 relative)."""
+    from superresolution_aniso_mri_tpu_torch.train import (
+        Trainer, make_multi_train_step, make_train_step)
+    from superresolution_aniso_mri_tpu_torch.train import steps as steps_mod
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    tr = Trainer(dict(model=model, dataset="ACDCLBL", lr=1e-4,
+                      image_mix_loss_func="mse", width=32, latent_width=8,
+                      depth=4, latent=6, colors=2, use_batchnorm=True,
+                      use_sigmoid=True, get_masks=True), device=cuda)
+    assert tr.family.startswith("multichannel")
+    rng = np.random.RandomState(5)
+    multi = make_multi_train_step(tr.loss_config, device=cuda)
+    replays = []
+    replay = steps_mod._CapturedStep.replay
+    monkeypatch.setattr(steps_mod._CapturedStep, "replay",
+                        lambda self, *a: replays.append(1) or replay(self, *a))
+    multi(tr.state, _labeled_batches(rng, steps_mod.WARMUP_STEPS + 1), 0.3)
+    eager_state = _clone_state(tr.state)
+    batches = _labeled_batches(rng, 4)
+    _, got = multi(tr.state, batches, 0.3)
+    assert len(replays) == 5
+    eager = make_train_step(tr.loss_config)
+    for i, b in enumerate(batches):
+        _, want = eager(eager_state, b, 0.3)
+        for k, v in want.items():
+            assert abs(float(got[k][i]) - float(v)) <= 1e-6 * abs(float(v)), k
+    for (k, p), q in zip(tr.state.model.state_dict().items(),
+                         eager_state.model.state_dict().values()):
+        assert float((p - q).abs().max()) <= 1e-6 * float(q.abs().max()), k
+
+
+def test_labeled_serving_and_dice_on_card_match_cpu(cuda):
+    """A MultiChannelAE served on the card against the CPU (float32, TF32
+    off): the image within 1e-4 and the decoded labels on at least 99.9%
+    of the voxels (an argmax near a tie may round either way); Dice on
+    the card against the CPU within 1e-6."""
+    from superresolution_aniso_mri_tpu_torch.infer import (
+        ServingModel, create_super_volume)
+    from superresolution_aniso_mri_tpu_torch.models import AEConfig
+    from superresolution_aniso_mri_tpu_torch.ops import dice_loss
+
+    cfg = AEConfig(width=32, latent_width=8, depth=8, latent=6, colors=2,
+                   use_batchnorm=True)
+    card = ServingModel(cfg, device=cuda, ae_class="MultiChannelAE",
+                        generator=torch.Generator().manual_seed(0))
+    cpu = ServingModel(cfg, card._ae_model().state_dict(), device="cpu",
+                       ae_class="MultiChannelAE")
+    rng = np.random.RandomState(6)
+    img = _pair((19, 41, 46), seed=2)[0]
+    lbl = rng.randint(0, 4, img.shape).astype(np.int16)
+    kw = dict(downsample_steps=3, alpha_range=[1 / 3, 2 / 3],
+              generate_inbetween_slices=True, labels=lbl)
+    got = create_super_volume(card, img, **kw)
+    want = create_super_volume(cpu, img, **kw)
+    np.testing.assert_allclose(got["upsampled_image"],
+                               want["upsampled_image"], atol=1e-4)
+    assert got["upsampled_labels"].dtype == np.int16
+    assert np.mean(got["upsampled_labels"] == want["upsampled_labels"]) \
+        >= 0.999
+    probs = torch.softmax(torch.randn(3, 4, 20, 24), dim=1)
+    labels = torch.randint(0, 4, (3, 20, 24), dtype=torch.int32)
+    assert abs(float(dice_loss(probs.cuda(), labels.cuda(), 4))
+               - float(dice_loss(probs, labels, 4))) <= 1e-6
 
 
 def test_failed_capture_raises_without_eager_fallback(cuda, monkeypatch):

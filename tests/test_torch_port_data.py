@@ -71,8 +71,18 @@ def test_triplet_sampler_label_channels_are_bitwise_jax():
 
 
 def test_triplet_sampler_masks_raise():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TripletSampler(_volumes(Volume, labels=True), 2, use_masks=True)
+    """``use_masks`` (``--get_masks``): labeled volumes give bitwise JAX's
+    batches with the between slice's loss mask as the last channel;
+    volumes without labels raise a ValueError in both packages."""
+    kw = dict(downsample_steps=2, seed=3, use_masks=True)
+    port = TripletSampler(_volumes(Volume, labels=True), **kw)
+    ref = JaxSampler(_volumes(JaxVolume, labels=True), **kw)
+    for _ in range(2):
+        _assert_batches_equal(port.sample_batch(4), ref.sample_batch(4))
+    assert port.sample_batch(2)["triplet"].shape[-1] == 7
+    for sampler in (TripletSampler, JaxSampler):
+        with pytest.raises(ValueError, match="labeled volumes"):
+            sampler(_volumes(Volume), 2, use_masks=True)
 
 
 AUG_CASES = {
@@ -252,19 +262,71 @@ def test_trainer_writes_the_jax_experiment_files(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra, item", [
-    (dict(model="multichannel"), "item 9b"),
-    (dict(model="alpha_combined"), "item 9b"),
-    (dict(ae_class="MultiChannelAE"), "item 9b"),
+    (dict(model="alpha_combined"), "item 9c"),
     (dict(num_devices=2), "item 11"),
-    (dict(model="vae2", ae_class="MultiChannelAE"), "item 9b"),
-    (dict(model="alpha"), "item 9b"),
-    (dict(dataset="ACDCLBL"), "item 9b"),
+    (dict(model="alpha"), "item 9c"),
 ])
 def test_trainer_raises_for_what_is_not_ported(extra, item):
     from superresolution_aniso_mri_tpu_torch.train import Trainer
 
     with pytest.raises(NotImplementedError, match=item):
         Trainer(dict(ARGS, **extra), device="cpu")
+
+
+def _labeled_batch(seed=0, b=2):
+    rng = np.random.RandomState(seed)
+
+    def planes(n):
+        return torch.from_numpy(np.concatenate(
+            [rng.rand(n, 1, 32, 32), rng.randint(0, 4, (n, 1, 32, 32))],
+            axis=1).astype(np.float32))
+
+    return {"image": planes(2 * b), "slice_between": planes(b),
+            "alpha_from": torch.full((b,), 0.5),
+            "alpha_to": torch.full((b,), 0.5)}
+
+
+@pytest.mark.parametrize("extra", [
+    dict(model="multichannel", dataset="ACDCLBL"),
+    dict(model="ae", dataset="ACDCLBL", get_masks=True),
+    dict(dataset="ACDCLBL"),
+])
+def test_trainer_trains_the_labeled_families(extra):
+    """ACDCLBL routes to MultiChannelAE and the multichannel family of
+    JAX's ``loss_config_from_args``; the trainer takes a step on a
+    (image, label) batch."""
+    from superresolution_aniso_mri_tpu.train.trainer import (
+        loss_config_from_args as jax_loss_config)
+    from superresolution_aniso_mri_tpu_torch.train import Trainer
+
+    args = dict(ARGS, colors=2, **extra)
+    tr = Trainer(args, device="cpu")
+    assert tr.args["ae_class"] == "MultiChannelAE"
+    assert tr.loss_config.model == jax_loss_config(args).model
+    assert tr.family == ("multichannel" if args["model"] in (
+        "ae", "multichannel") else "multichannel_combined")
+    metrics = tr.train(_labeled_batch())
+    assert "loss_label" in metrics
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+
+
+@pytest.mark.parametrize("extra", [
+    dict(model="multichannel"),
+    dict(ae_class="MultiChannelAE"),
+    dict(model="vae2", ae_class="MultiChannelAE"),
+])
+def test_trainer_refuses_a_class_its_family_cannot_train(extra):
+    """A class routed as JAX routes it (``vae2`` keeps an explicit
+    MultiChannelAE) whose decode cannot feed the family's loss: an
+    eval-mode trainer builds it, a training one raises a ValueError (JAX
+    builds it and fails at its first step)."""
+    from superresolution_aniso_mri_tpu_torch.train import Trainer
+
+    args = dict(ARGS, **extra)
+    served = Trainer(args, device="cpu", eval_mode=True)
+    assert served.args["ae_class"] == extra.get("ae_class", "VanillaACAI")
+    with pytest.raises(ValueError, match="cannot train ae_class"):
+        Trainer(args, device="cpu")
 
 
 @pytest.mark.parametrize("extra, recon, mix", [

@@ -206,8 +206,21 @@ def test_create_lr_dataset_matches_jax(tmp_path):
 
 
 def test_acdclbl_from_disk_raises_with_roadmap_item(data_root):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        td.get_datasets(dict(dataset="ACDCLBL", downsample_steps=2))
+    """ACDCLBL reads the labeled ED/ES frames beside the cines, as JAX
+    does: the same frames and splits, the images bitwise, the labels
+    exact; ARVC (eval-only) still raises."""
+    args = dict(dataset="ACDCLBL", downsample_steps=2)
+    got, want = td.get_datasets(args), jd.get_datasets(args)
+    for g_split, w_split in zip(got, want):
+        assert [v.patient_id for v in g_split] == [
+            v.patient_id for v in w_split]
+        for g, w in zip(g_split, w_split):
+            assert np.array_equal(g.image, w.image)
+            assert g.labels.dtype == w.labels.dtype == np.int32
+            assert np.array_equal(g.labels, w.labels)
+            np.testing.assert_array_equal(g.spacing, w.spacing)
+    assert got[0] and got[1] and all("_frame" in v.patient_id
+                                     for v in got[0] + got[1])
     with pytest.raises(ValueError, match="unknown dataset"):
         td.get_datasets(dict(dataset="ARVC", downsample_steps=2))
 

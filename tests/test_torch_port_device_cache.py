@@ -59,10 +59,24 @@ def test_cached_batches_are_bitwise_the_host_samplers(taps):
     assert cached.flat_img.shape == (sum(s[0] for s in SHAPES), 26, 26)
 
 
-def test_cached_labels_raise_with_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        DeviceCachedSampler(TripletSampler(_volumes(Volume, labels=True), 2),
-                            "cpu")
+@pytest.mark.parametrize("masks", [False, True])
+def test_cached_labels_raise_with_roadmap_item(masks):
+    """Labeled samplers (ACDCLBL) cache their label stacks, and with
+    ``use_masks`` their loss-mask stacks: the gathered batches are
+    bitwise the host sampler's and JAX's, and the budget counts the
+    stacks as JAX's ``cache_nbytes`` does."""
+    kw = dict(downsample_steps=2, seed=4, use_masks=masks)
+    cached = DeviceCachedSampler(
+        TripletSampler(_volumes(Volume, labels=True), **kw), "cpu")
+    host = TripletSampler(_volumes(Volume, labels=True), **kw)
+    ref = JaxSampler(_volumes(JaxVolume, labels=True), **kw)
+    for _ in range(2):
+        want = host.sample_batch(5)
+        _same(cached.sample_batch(5), want)
+        _same(ref.sample_batch(5), want)
+    for got, want in zip(cached.epoch_batches(4), host.epoch_batches(4)):
+        _same(got, want)
+    assert cache_nbytes(host) == jcache.cache_nbytes(ref)
 
 
 @pytest.mark.parametrize("mode, budget_mb, want", [

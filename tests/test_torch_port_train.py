@@ -373,12 +373,18 @@ def test_eval_step_matches_jax(case):
 
 
 @pytest.mark.parametrize("loss_kw, item", [
-    (dict(model="multichannel"), "item 9b"),
-    (dict(model="alpha_combined"), "item 9b"),
+    (dict(model="multichannel"), None),
+    (dict(model="alpha_combined"), "item 9c"),
 ])
 def test_unported_losses_raise(loss_kw, item):
+    """The alpha families raise naming their ROADMAP item; the
+    multichannel families build both steps (their parity is in
+    ``test_torch_port_labeled_train.py``)."""
     cfg = LossConfig(**{**LOSS, **loss_kw})
     for build in (make_train_step, make_eval_step):
+        if item is None:
+            assert callable(build(cfg))
+            continue
         with pytest.raises(NotImplementedError, match=item):
             build(cfg)
 
