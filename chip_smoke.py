@@ -13,7 +13,8 @@ hand-written kernel against its plain PyTorch version.
                                                  # of phase 10's, 10 of
                                                  # phase 11's acai, 10
                                                  # eager and 16 replayed
-                                                 # of phase 12's
+                                                 # of phase 12's and of
+                                                 # phase 13's
 
 Phases (any failure ends the run with a non-zero exit):
   1. device: the card's name and power limit (nvidia-smi);
@@ -125,13 +126,30 @@ Phases (any failure ends the run with a non-zero exit):
      bf16 serving against float32's (share of equal voxels);
      ``create_hr_images`` and find-best on the validation frames (SSIM
      launches counted, each pair held against the plain version).
+ 13. the alpha-probe families, on phase 8's ACDC cines with the cardiac
+     recipe's flags (``ALPHA_ARGV``: width 128, latent 128, depth 32,
+     -b 12): train-cardiac -m alpha_end_to_end 2 epochs eager and 1 with
+     ``--steps_per_dispatch 8`` (ms/step, the spd 8 one from 8 replays
+     of the captured step, peak GiB), 8 replays against 8 eager steps
+     (limit 1e-6 relative); -m alpha, alpha_only (its autoencoder
+     bitwise unchanged) and alpha_combined, and -m alpha_end_to_end
+     --alpha_class AlphaProbe256v1 (the spatial scheme, a 2053-wide
+     flatten), 1 epoch each; 3 small-config steps of each variant on the
+     card against the CPU (limit 1e-5 relative); ``create_hr_images``
+     and find-best over the alpha_end_to_end checkpoints on the
+     validation frames; ``latent_space_interp_pred_alpha`` of the first
+     validation frame's kept slices (its 128² center crop, ds 2) scored
+     against the held-out slices (the predicted alphas' mean and range);
+     ``reconstruct_in_patches`` on the card against the CPU; a forward of
+     each legacy model on the card against the CPU. SSIM launches
+     counted and each pair held against the plain version.
 The main path (serve linear → score) runs with every kernel launch count
 set to 0 just before it and read just after; so do the train phase's
 path (serve the trained checkpoint → score), each find-best sweep of
 phase 7, phase 8's find-best, phase 9's scoring of the perceptual
 checkpoint and of the baselines, phase 10's scoring of the fitted
-table, phase 11's and phase 12's scoring paths (every pair each scored
-held against the plain version). The line before the last lists every
+table, phase 11's, phase 12's and phase 13's scoring paths (every pair
+each scored held against the plain version). The line before the last lists every
 kernel with its check, launches (``launches``: the main path;
 ``launches_by_path``: every counted path) and times; the last line is
 the device summary.
@@ -163,7 +181,10 @@ KERNEL_SHAPES = ((HR_SLICES, HW, HW), (8, 256, 256), (5, 129, 97),
                  (43 * 4 + 1, 208, 176),
                  # phase 12's scoring: a [10, 216, 256] ACDC frame at
                  # 1.5625 mm resampled to 1.4 mm, its 9 on-grid slices
-                 (9, 241, 286))
+                 (9, 241, 286),
+                 # phase 13's probe-mixed slices: 4 of a frame's 128²
+                 # center crop at ds 2
+                 (4, 128, 128))
 KERNEL_ATOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
@@ -222,6 +243,24 @@ LABELED_CARD_RTOL = 1e-5
 # of voxels whose decoded class agrees; a broken label path would agree
 # by chance (~1/4 for 4 classes)
 LABELED_BF16_AGREEMENT = 0.5
+# phase 13: the alpha-probe families on phase 8's ACDC cines (2 training
+# patients × 12 frames × 10 slices: 20 batches of 12 an epoch, so spd 8
+# fills two dispatches and graph vs eager has its 12 batches), the README
+# cardiac row's flags without --train_latent_interp (the alpha branch of
+# JAX's loss_config_from_args ignores it), --epoch_threshold -1 for
+# find-best
+ALPHA_ARGV = (["-d", "ACDC", "-m", "alpha_end_to_end"]
+              + ACDC_ARGV[4:ACDC_ARGV.index("--train_latent_interp")]
+              + ["--epoch_threshold", "-1"])
+ALPHA_CARD_RTOL = 1e-5
+# the legacy models' float32 forwards (TF32 off) on the card against the
+# CPU's, relative to the output's largest entry. DiscriminatorSpatial
+# ends in a 32768-term Dense whose scores cancel, and the card and the
+# CPU round it to opposite sides of its float64 forward (card 5.2e-6,
+# CPU 4.8e-6, 1.0e-5 apart, on an H100 80GB HBM3 at 700 W and its
+# host): it is held against the float64 forward instead, at the same
+# limit
+LEGACY_CARD_RTOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -2285,6 +2324,328 @@ def check_labeled(tmp: str, seed: int, card: str, dev,
     return out
 
 
+def alpha_card_vs_cpu(seed: int, dev) -> float:
+    """3 small-config steps of each alpha family (the probe's BatchNorm,
+    the synthesis loss masked) on the card against the CPU from the same
+    weights and batches: the largest relative metric difference; raises
+    past ``ALPHA_CARD_RTOL``, when the parameters' movement θ − θ0
+    agrees within 0.1 of its largest entry for less than 99.5 % of the
+    entries (Adam's first steps are near-sign steps: an entry whose update
+    changed sign moves 2·lr·steps the other way), or when alpha_only's
+    autoencoder moved."""
+    import torch
+
+    from superresolution_aniso_mri_tpu_torch.train import Trainer
+
+    lr = 1e-5
+    raw, small_batches, _ = train_data(seed + 13, SMALL_CFG["width"], 4, 3,
+                                       dev)
+    rng = np.random.RandomState(seed + 13)
+    batches = [{**b, "alpha_features": torch.from_numpy(
+        r["alpha_features"]).to(dev), "loss_mask": torch.from_numpy(
+            (rng.rand(*b["slice_between"].shape) > 0.3).astype(
+                np.float32)).to(dev)}
+        for r, b in zip(raw, small_batches)]
+    worst = 0.0
+    for model, alpha_class in (("alpha", "AlphaProbe"),
+                               ("alpha_end_to_end", "AlphaProbe256v1"),
+                               ("alpha_only", "AlphaProbe16Convex"),
+                               ("alpha_combined", "AlphaProbe16v1")):
+        args = dict(model=model, alpha_class=alpha_class, dataset="ACDC",
+                    lr=lr, get_masks=True, use_batchnorm_probe=True,
+                    seed=seed, **SMALL_CFG)
+        card, cpu = Trainer(args, device=dev), Trainer(args, device="cpu")
+        # the Dense layers are drawn on each trainer's device
+        cpu.model.load_state_dict({k: v.cpu() for k, v in
+                                   card.model.state_dict().items()})
+        ae0 = {k: v.clone() for k, v in card.model["ae"].state_dict().items()}
+        theta0 = [p.detach().cpu().clone() for p in cpu.model.parameters()]
+        rel = 0.0
+        for b in batches:
+            _, cm = card.train_step(card.state, b, 0.3)
+            _, hm = cpu.train_step(cpu.state, {k: v.cpu()
+                                               for k, v in b.items()}, 0.3)
+            for k in hm:
+                rel = max(rel, abs(float(cm[k]) - float(hm[k]))
+                          / max(abs(float(hm[k])), 1e-12))
+        moves = [(p.detach().cpu() - p0, q.detach() - p0) for p, q, p0 in
+                 zip(card.model.parameters(), cpu.model.parameters(), theta0)]
+        top = max(float(b.abs().max()) for _, b in moves)
+        gap = torch.cat([(a - b).abs().reshape(-1) for a, b in moves])
+        agree = float((gap <= 0.1 * top).double().mean())
+        moved = model == "alpha_only" and not all(
+            torch.equal(v, card.model["ae"].state_dict()[k])
+            for k, v in ae0.items())
+        log(f"alpha: card vs CPU, {len(batches)} steps of {model} "
+            f"{alpha_class} {SMALL_CFG}: max rel metric diff {rel:.3e} "
+            f"(limit {ALPHA_CARD_RTOL}), θ − θ0 within 0.1 of its largest "
+            f"entry {top:.3e} for {agree:.4%} of the entries (limit 99.5%), "
+            f"max |Δ| {float(gap.max()):.3e}")
+        if not rel <= ALPHA_CARD_RTOL or not agree >= 0.995 or moved:
+            raise AssertionError(f"card and CPU {model} training differ")
+        worst = max(worst, rel)
+    return worst
+
+
+def legacy_card_vs_cpu(seed: int, dev) -> float:
+    """A forward of each legacy model (their default widths, the spatial
+    critic at 128²) on a [4, 1, 128, 128] batch on the card, float32
+    with TF32 off, against the CPU's float32 forward and its float64
+    forward (the witness of which side rounds): the largest |Δ| relative
+    to the output's largest entry. Returns the largest held difference:
+    from the CPU, DiscriminatorSpatial's from float64 (see
+    ``LEGACY_CARD_RTOL``); raises past the limit."""
+    import copy
+
+    import torch
+
+    from superresolution_aniso_mri_tpu_torch.device import f32_exact
+    from superresolution_aniso_mri_tpu_torch.models import (
+        DiscriminatorFakeReal, DiscriminatorSpatial, LegacyAE, LegacyAEAdv,
+        reset_parameters)
+
+    def rel(a, b):
+        return float((a.double() - b.double()).abs().max()) / max(
+            float(b.abs().max()), 1e-30)
+
+    x = torch.from_numpy(np.random.RandomState(seed + 14).rand(
+        4, 1, 128, 128).astype(np.float32))
+    worst = 0.0
+    for model in (LegacyAE(), LegacyAEAdv(), DiscriminatorSpatial(width=128),
+                  DiscriminatorFakeReal()):
+        name = type(model).__name__
+        reset_parameters(model, torch.Generator().manual_seed(seed))
+        model.eval()
+        with torch.no_grad(), f32_exact():
+            want = model(x)
+            # DiscriminatorFakeReal casts its input to float32, so its
+            # witness is its float32 forward
+            exact = copy.deepcopy(model).double()(x.double())
+            card = model.to(dev)
+            t0 = time.perf_counter()
+            got = card(x.to(dev)).cpu()
+            secs = time.perf_counter() - t0
+        vs_cpu, card64, cpu64 = rel(got, want), rel(got, exact), rel(want,
+                                                                    exact)
+        spatial = name == "DiscriminatorSpatial"
+        held = card64 if spatial else vs_cpu
+        log(f"legacy {name}: {tuple(x.shape)} → {tuple(got.shape)}, max rel "
+            f"diff card vs CPU {vs_cpu:.3e}, from float64 card {card64:.3e} "
+            f"CPU {cpu64:.3e} (limit {LEGACY_CARD_RTOL} from "
+            + ("float64" if spatial else "the CPU")
+            + f"), {secs * 1e3:.1f} ms on the card (first call)")
+        if not held <= LEGACY_CARD_RTOL or not torch.isfinite(got).all():
+            raise AssertionError(f"legacy {name} differs on the card")
+        worst = max(worst, held)
+    return worst
+
+
+def check_alpha(tmp: str, seed: int, card: str, dev,
+                profile_path=None) -> dict:
+    """Phase 13 (see the module docstring), on phase 8's data root in
+    ``tmp``; returns the SSIM launches of its scoring paths, the
+    kernel's largest error on the pairs they scored and the phase's
+    numbers. With ``profile_path``: 10 traced eager steps and 16
+    replayed ones (``profile_path + ".alpha.txt"`` and
+    ``".alpha_spd8.txt"``)."""
+    import torch
+
+    from superresolution_aniso_mri_tpu_torch.cli import entry
+    from superresolution_aniso_mri_tpu_torch.data.datasets import (
+        load_acdc_volumes)
+    from superresolution_aniso_mri_tpu_torch.evaluate import create_hr_images
+    from superresolution_aniso_mri_tpu_torch.infer import (
+        latent_space_interp_pred_alpha, reconstruct_in_patches)
+    from superresolution_aniso_mri_tpu_torch.ops import cuda_kernels
+    from superresolution_aniso_mri_tpu_torch.train import Trainer, get_trainer
+
+    _free_cuda()
+    t_phase = time.perf_counter()
+    out: dict = {"launches": {}, "kernel_err": 0.0}
+
+    def scored(name, fn):
+        res, n, err, secs = _counted_scoring(fn, f"phase 13 {name}")
+        out["launches"][name] = n
+        out["kernel_err"] = max(out["kernel_err"], err)
+        out[f"{name}_s"] = secs
+        return res
+
+    def train(name, argv):
+        exper = os.path.join(tmp, name)
+        _free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        res = _train_timed(entry.train_cardiac, argv + ["-o", tmp, "-id",
+                                                        name], exper)
+        out[f"{name}_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        trainer = res["trainer"]
+        if trainer.family != "alpha" or trainer.loss_config.model != \
+                trainer.args["model"]:
+            raise AssertionError(f"{name}: trained {trainer.family}")
+        losses = np.load(os.path.join(exper, "losses_train.npz"))
+        if not all(np.isfinite(losses[k]).all() for k in (
+                "loss_latent_1", "loss_latent_2", "pred_alpha_mean",
+                "loss_ae_dist_extra")):
+            raise AssertionError(f"{name}: alpha losses not finite")
+        spd = "--steps_per_dispatch" in argv
+        for k in (("cli_s", "steps", "dispatches") if spd
+                  else ("ms_per_step", "ms_per_step_min", "cli_s", "steps")):
+            out[f"{name}_{k}"] = res[k]
+        hidden = ("trainer", "step_loss_ae") + (
+            ("ms_per_step", "ms_per_step_min") if spd else ())
+        log(f"alpha {name}: " + json.dumps(
+            {k: v for k, v in res.items() if k not in hidden})
+            + f", peak {out[f'{name}_peak_gib']:.2f} GiB, probe "
+            f"{type(trainer.model['probe']).__name__} of "
+            f"{trainer.args.get('alpha_class') or 'AlphaProbe16v1'}, "
+            f"{trainer.num_alphas} coefficients "
+            f"({trainer.loss_config.alpha_scheme}) [{card}]")
+        return res
+
+    # 1. alpha_end_to_end (the recipe's flags): 2 epochs eager and 1 with
+    # --steps_per_dispatch 8, whose ms/step comes from 8 replays of the
+    # step its run captured; 8 replays against 8 eager steps
+    runs = {"alpha_e2e": train("alpha_e2e", _with_epochs(ALPHA_ARGV, 2)),
+            "alpha_e2e_spd8": train("alpha_e2e_spd8", ALPHA_ARGV + [
+                "--steps_per_dispatch", str(SPD)])}
+    spd8 = runs["alpha_e2e_spd8"]
+    if not spd8["dispatches"] < spd8["steps"]:
+        raise AssertionError("alpha_e2e_spd8 did not dispatch several steps")
+    out["alpha_e2e_spd8_ms_per_step"] = replay_ms(spd8["trainer"], dev)
+    log(f"alpha: alpha_end_to_end ms/step eager "
+        f"{out['alpha_e2e_ms_per_step']:.3f}, --steps_per_dispatch {SPD} "
+        f"{out['alpha_e2e_spd8_ms_per_step']:.3f} [{card}]")
+    if profile_path:
+        profile_disk_steps(runs["alpha_e2e"]["trainer"], dev,
+                           profile_path + ".alpha.txt")
+        profile_disk_steps(spd8["trainer"], dev,
+                           profile_path + ".alpha_spd8.txt", steps=2 * SPD,
+                           spd=SPD)
+    graph = graph_vs_eager(spd8["trainer"], dev)
+    out.update({f"alpha_e2e_{k}": v for k, v in graph.items()})
+    log(f"alpha: graph vs eager, {SPD} alpha_end_to_end steps: max rel "
+        f"loss diff {graph['graph_vs_eager_loss_rel']:.3e}, max |Δ| of the "
+        f"parameters {graph['graph_vs_eager_param_abs']:.3e} (rel "
+        f"{graph['graph_vs_eager_param_rel']:.3e}; limit {GRAPH_RTOL} "
+        f"relative)")
+    if not (graph["graph_vs_eager_loss_rel"] <= GRAPH_RTOL
+            and graph["graph_vs_eager_param_rel"] <= GRAPH_RTOL):
+        raise AssertionError("the replayed alpha step differs from the "
+                             "eager")
+    del runs, spd8
+    _free_cuda()
+
+    # 2. the other variants and the spatial probe, 1 epoch each
+    for name, model, extra in (
+            ("alpha", "alpha", ()), ("alpha_only", "alpha_only", ()),
+            ("alpha_combined", "alpha_combined", ()),
+            ("alpha_256", "alpha_end_to_end",
+             ("--alpha_class", "AlphaProbe256v1"))):
+        trainer = train(name, _as_family(ALPHA_ARGV, model, *extra))["trainer"]
+        if name == "alpha_only":
+            fresh = Trainer(dict(trainer.args), device=dev)
+            same = all(torch.equal(v, trainer.model["ae"].state_dict()[k])
+                       for k, v in fresh.model["ae"].state_dict().items())
+            log(f"alpha alpha_only: the autoencoder after "
+                f"{out['alpha_only_steps']} steps equals its initial "
+                f"weights and statistics bitwise: {same}")
+            if not same:
+                raise AssertionError("alpha_only moved the autoencoder")
+            del fresh
+        if name == "alpha_combined" and "decoder_mix" not in trainer.model:
+            raise AssertionError("alpha_combined has no decoder_mix")
+        if name == "alpha_256":
+            lw = trainer.model_config.latent_width
+            first = tuple(trainer.model["probe"].dense[0].weight.shape)
+            log(f"alpha alpha_256: AlphaProbe256v1's first Dense {first} "
+                f"(flax [in, out] {first[::-1]})")
+            if first[1] != lw * lw * (lw // 2) + 5:
+                raise AssertionError(f"AlphaProbe256v1 flattens to {first}")
+        del trainer
+        _free_cuda()
+
+    # 3. card against CPU
+    out["card_vs_cpu_rel"] = alpha_card_vs_cpu(seed, dev)
+
+    # 4. create_hr_images and find-best over the alpha_end_to_end
+    # checkpoints on the validation frames (served through the ae)
+    exper = os.path.join(tmp, "alpha_e2e")
+    trainer = get_trainer(exper, "caisr")
+    val = load_acdc_volumes("validation")
+    hr_res = scored("alpha_create_hr_images",
+                    lambda: create_hr_images(trainer, val, 2))
+    agg = {k: hr_res["aggregate"][k][0] for k in ("ssim", "psnr")}
+    out["create_hr_images_s_per_volume"] = (
+        out["alpha_create_hr_images_s"] / len(val))
+    best = scored("alpha_find_best", lambda: entry.find_best_model(
+        ["--exper_dir", exper]))
+    out["find_best_s_per_checkpoint"] = (out["alpha_find_best_s"]
+                                         / len(best["epochs"]))
+    log(f"alpha create_hr_images on {len(val)} validation frames "
+        f"{val[0].image.shape}: {json.dumps(agg)}, "
+        f"{out['create_hr_images_s_per_volume']:.3f} s/volume; find-best "
+        f"epochs {best['epochs']}, "
+        f"{out['find_best_s_per_checkpoint']:.3f} s/checkpoint; launches "
+        f"{json.dumps(out['launches'])} [{card}]")
+    if out["launches"]["alpha_create_hr_images"] != len(val) \
+            or best["epochs"] != [0, 1] \
+            or out["launches"]["alpha_find_best"] != 2 * len(val) \
+            or not all(np.isfinite(v) for v in agg.values()):
+        raise AssertionError("phase 13 scoring did not score every "
+                             "validation frame through the SSIM kernel")
+
+    # 5. probe-predicted mixes of the first validation frame's kept slices
+    # (its center crop at the training width: the probe's Dense layers
+    # fix the latent grid), scored against the held-out slices
+    vol = val[0]
+    w = int(trainer.args["width"])
+    h0, w0 = ((n - w) // 2 for n in vol.image.shape[1:])
+    crop = vol.image[:, h0:h0 + w, w0:w0 + w]
+    kept, held = crop[::2], crop[1:-1:2]
+    n_pairs = min(len(kept) - 1, len(held))
+    fd = {"anatomy": "cardiac",
+          "norm_frame_id": (vol.frame_id + 1.0) / vol.num_frames,
+          "orig_num_slices": crop.shape[0], "spacing": float(vol.spacing[0])}
+
+    def interp():
+        dec, alphas = latent_space_interp_pred_alpha(
+            trainer, kept[:n_pairs, None], kept[1:n_pairs + 1, None], 2, fd)
+        ref = torch.from_numpy(np.ascontiguousarray(held[:n_pairs])).to(dev)
+        return dec, alphas, cuda_kernels.ssim_volume_fused(
+            ref, dec[:, 0].contiguous())
+
+    dec, alphas, ssim = scored("alpha_pred_interp", interp)
+    out["pred_alpha_mean"] = float(alphas.mean())
+    out["pred_alpha_min"] = float(alphas.min())
+    out["pred_alpha_max"] = float(alphas.max())
+    out["pred_interp_ssim"] = [float(v) for v in ssim.cpu()]
+    log(f"alpha latent_space_interp_pred_alpha: {n_pairs} pairs of "
+        f"{crop.shape[1:]} → {tuple(dec.shape)}, predicted alphas "
+        f"{alphas.shape} mean {out['pred_alpha_mean']:.4f} range "
+        f"[{out['pred_alpha_min']:.4f}, {out['pred_alpha_max']:.4f}], SSIM "
+        f"against the held-out slices {out['pred_interp_ssim']}")
+    if tuple(dec.shape) != (n_pairs, 1, w, w) or not bool(
+            torch.isfinite(dec).all()) or not np.isfinite(alphas).all():
+        raise AssertionError("probe-predicted interpolation failed")
+
+    # 6. patch-tiled reconstruction on the card against the CPU
+    cpu_trainer = get_trainer(exper, "caisr", device="cpu")
+    got = reconstruct_in_patches(trainer, crop, 32)
+    want = reconstruct_in_patches(cpu_trainer, crop, 32)
+    out["patches_card_vs_cpu"] = float(np.abs(got - want).max())
+    log(f"alpha reconstruct_in_patches {crop.shape} in 32² tiles: card vs "
+        f"CPU max |Δ| {out['patches_card_vs_cpu']:.3e} (limit 1e-4)")
+    if not out["patches_card_vs_cpu"] <= 1e-4:
+        raise AssertionError("patch-tiled reconstruction differs on the card")
+    del trainer, cpu_trainer
+    _free_cuda()
+
+    # 7. the legacy models
+    out["legacy_card_vs_cpu_rel"] = legacy_card_vs_cpu(seed, dev)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"alpha timings [{card}]: " + json.dumps(out))
+    return out
+
+
 def _kernel_kind(name: str) -> str:
     """Bucket of a device event by its kernel name."""
     low = name.lower()
@@ -2543,6 +2904,8 @@ def main() -> int:
                                   args.profile)
         # ---- 12. the labeled cardiac path -----------------------------
         labeled = check_labeled(tmp, args.seed, card, dev, args.profile)
+        # ---- 13. the alpha-probe families -----------------------------
+        alpha = check_alpha(tmp, args.seed, card, dev, args.profile)
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)  # name and power limit, as nvidia-smi prints them
@@ -2565,13 +2928,14 @@ def main() -> int:
             "fitted_create_hr_images": options["fitted_launches"],
             **{f"families_{k}": v
                for k, v in families["launches"].items()},
-            **labeled["launches"]},
+            **labeled["launches"], **alpha["launches"]},
         "max_abs_err": max(kcheck["max_abs_err"],
                            disk["find_best_kernel_err"],
                            percept["percept_kernel_err"],
                            options["fitted_kernel_err"],
                            families["kernel_err"],
-                           labeled["kernel_err"]), "ok": True,
+                           labeled["kernel_err"],
+                           alpha["kernel_err"]), "ok": True,
         "ms": kernel_ms, "ms_cold": kernel_cold_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "bound_share": bound_ms / kernel_ms,

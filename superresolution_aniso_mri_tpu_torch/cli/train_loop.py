@@ -29,6 +29,9 @@ epochs, the parameter histograms.
 ``--get_masks`` (labeled datasets) samples each triplet with its
 between slice's loss mask as the last channel; it rides through the
 augmentation and reaches the step as ``batch["loss_mask"]``.
+Every batch carries each pair's slice-geometry features
+(``batch["alpha_features"]`` [B, 5], ``TripletSampler``'s), which the
+alpha families' probes read and the other families ignore.
 
 Not ported, and raising before anything is written: MNISTRoto's
 on-the-fly sampler (item 15), multi-host runs (item 11), and what

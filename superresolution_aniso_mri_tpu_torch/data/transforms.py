@@ -466,9 +466,11 @@ def device_batch(raw: Dict, cfg: AugmentConfig, device, latent_taps: int = 2,
     its copy has completed), augment (random ops drawn from
     ``generator``), split into ``image`` / ``slice_between`` (+ ``outer``
     / ``outer2`` for 4 / 6 latent taps), with ``alpha_from``,
-    ``alpha_to``, ``is_inbetween``. ``with_mask``: the last channel is
-    the loss mask (``TripletSampler(use_masks=True)``), which rode
-    through the augmentation and becomes ``loss_mask`` [B, 1, H, W]."""
+    ``alpha_to``, ``is_inbetween`` and ``alpha_features`` (the alpha
+    probes' slice geometry [B, 5]) where the sampler gives them.
+    ``with_mask``: the last channel is the loss mask
+    (``TripletSampler(use_masks=True)``), which rode through the
+    augmentation and becomes ``loss_mask`` [B, 1, H, W]."""
     cuda = torch.device(device).type == "cuda"
 
     def put(a):
@@ -492,7 +494,7 @@ def device_batch(raw: Dict, cfg: AugmentConfig, device, latent_taps: int = 2,
     else:
         batch["image"], batch["slice_between"] = prepare_batch_pairs(x)
     batch = {k: v.contiguous() for k, v in batch.items()}
-    for key in ("alpha_from", "alpha_to", "is_inbetween"):
+    for key in ("alpha_from", "alpha_to", "is_inbetween", "alpha_features"):
         if key in raw:
             batch[key] = put(raw[key])
     return batch

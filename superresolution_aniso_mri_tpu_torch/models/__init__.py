@@ -1,9 +1,13 @@
-"""Model definitions of the port, the ``ae_class`` registry and the flax
+"""Model definitions of the port (the ``ae_class`` registry's classes,
+the alpha probes, the legacy block models), the registry and the flax
 converters."""
 from .acai import (Decoder, Discriminator, Encoder, ResBlock, VanillaACAI,
                    lerp, reset_parameters, swap_halves)
+from .alpha import AlphaDecoder, SELayer, make_alpha_probe
 from .config import AEConfig
 from .convert import flax_to_torch, torch_to_flax
+from .legacy import (DiscriminatorFakeReal, DiscriminatorSpatial, LegacyAE,
+                     LegacyAEAdv, bilinear_upsample2x)
 from .multi_channel import MultiChannelAE
 from .vae import VAE, VAE2
 from .variants import LargerAE, VanillaACAIStrided
@@ -33,8 +37,11 @@ def build_model(ae_class: str, config: AEConfig):
     return MODEL_REGISTRY[ae_class](config)
 
 
-__all__ = ["AEConfig", "Decoder", "Discriminator", "Encoder", "LargerAE",
-           "MODEL_REGISTRY", "MultiChannelAE", "ResBlock", "VAE", "VAE2",
-           "VanillaACAI", "VanillaACAIStrided", "build_model",
-           "flax_to_torch", "lerp", "model_config", "reset_parameters",
-           "swap_halves", "torch_to_flax"]
+__all__ = ["AEConfig", "AlphaDecoder", "Decoder", "Discriminator",
+           "DiscriminatorFakeReal", "DiscriminatorSpatial", "Encoder",
+           "LargerAE", "LegacyAE", "LegacyAEAdv", "MODEL_REGISTRY",
+           "MultiChannelAE", "ResBlock", "SELayer", "VAE", "VAE2",
+           "VanillaACAI", "VanillaACAIStrided", "bilinear_upsample2x",
+           "build_model", "flax_to_torch", "lerp", "make_alpha_probe",
+           "model_config", "reset_parameters", "swap_halves",
+           "torch_to_flax"]

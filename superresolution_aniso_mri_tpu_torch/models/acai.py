@@ -42,30 +42,39 @@ def _leaky(x: torch.Tensor) -> torch.Tensor:
 
 class Conv(nn.Module):
     """Stride-1 conv with SAME padding for odd kernels > 1 and VALID for
-    1x1, or (``stride > 1``) a VALID strided conv; float32 parameters
-    cast to the activation dtype per call."""
+    1x1, or (``stride > 1``) a VALID strided conv, or the explicit
+    ``padding``; float32 parameters cast to the activation dtype per
+    call. ``kernel_init`` names the draw of ``reset_parameters``:
+    ``"acai"`` (the ACAI family's), ``"lecun"`` (flax's ``nn.Conv``
+    default) or ``"kaiming"`` (flax's ``kaiming_normal``)."""
 
-    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1):
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
+                 padding: Optional[int] = None, bias: bool = True,
+                 kernel_init: str = "acai"):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(cout, cin, kernel, kernel))
-        self.bias = nn.Parameter(torch.zeros(cout))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
         self.stride = stride
-        self.padding = kernel // 2 if stride == 1 else 0
+        self.padding = (padding if padding is not None
+                        else kernel // 2 if stride == 1 else 0)
+        self.kernel_init = kernel_init
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, self.weight.to(x.dtype), bias,
                         stride=self.stride, padding=self.padding)
 
 
 class Dense(nn.Module):
     """flax ``nn.Dense`` with float32 parameters: ``x @ weight.T + bias``
     in the input's dtype (float32 at every caller). ``weight`` is
-    ``[out, in]``, the transpose of the flax kernel."""
+    ``[out, in]``, the transpose of the flax kernel; ``bias=False`` is
+    flax's ``use_bias=False``."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(cout, cin))
-        self.bias = nn.Parameter(torch.zeros(cout))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight, self.bias)
@@ -273,9 +282,23 @@ class VanillaACAI(nn.Module):
         reset_parameters(self, generator)
 
 
-# flax's lecun_normal: a normal truncated at two standard deviations,
-# widened so that the truncated draw has variance 1 / fan_in
+# flax's variance_scaling with a truncated normal (lecun_normal,
+# kaiming_normal): a normal truncated at two standard deviations,
+# widened so that the truncated draw has variance scale / fan_in
 _TRUNC_STD = 0.87962566103423978
+_VARIANCE_SCALE = {"lecun": 1.0, "kaiming": 2.0}
+
+
+def _truncated_normal_(w: torch.Tensor, scale: float, fan_in: int,
+                       generator: torch.Generator) -> None:
+    """flax's truncated-normal ``variance_scaling(scale, "fan_in")`` into
+    ``w``, drawn on its own device from a generator seeded by one draw of
+    ``generator``."""
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
+    dev_gen = torch.Generator(device=w.device).manual_seed(seed)
+    std = math.sqrt(scale / fan_in) / _TRUNC_STD
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                          generator=dev_gen)
 
 
 @torch.no_grad()
@@ -286,6 +309,8 @@ def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
     ``acai_kernel_init``, N(0, std) with ``std = 1/sqrt((1 + 0.2^2) *
     fan_in)``, fan_in = kh*kw*in, drawn on the CPU from ``generator``
     in module order, so a seed gives the same weights on every machine;
+    a conv whose ``kernel_init`` is ``"lecun"`` or ``"kaiming"`` (the
+    probes', the legacy models') flax's truncated normal of that name;
     zero biases; identity BatchNorm. Dense kernels: flax's
     ``lecun_normal``, drawn on the weight's own device from a generator
     seeded by one draw of ``generator`` (a recipe VAE head holds 1.07 G
@@ -295,17 +320,20 @@ def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
             w = mod.weight
             cin = w.shape[0] if isinstance(mod, ConvTranspose) else w.shape[1]
             fan_in = cin * w.shape[2] * w.shape[3]
-            std = 1.0 / math.sqrt((1.0 + 0.2 ** 2) * fan_in)
-            w.copy_(torch.randn(w.shape, generator=generator) * std)
-            mod.bias.zero_()
+            init = getattr(mod, "kernel_init", "acai")
+            if init == "acai":
+                std = 1.0 / math.sqrt((1.0 + 0.2 ** 2) * fan_in)
+                w.copy_(torch.randn(w.shape, generator=generator) * std)
+            else:
+                _truncated_normal_(w, _VARIANCE_SCALE[init], fan_in,
+                                   generator)
+            if mod.bias is not None:
+                mod.bias.zero_()
         elif isinstance(mod, Dense):
-            w = mod.weight
-            seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
-            dev_gen = torch.Generator(device=w.device).manual_seed(seed)
-            std = math.sqrt(1.0 / w.shape[1]) / _TRUNC_STD
-            nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
-                                  generator=dev_gen)
-            mod.bias.zero_()
+            _truncated_normal_(mod.weight, 1.0, mod.weight.shape[1],
+                               generator)
+            if mod.bias is not None:
+                mod.bias.zero_()
         elif isinstance(mod, BatchNorm):
             mod.weight.fill_(1.0)
             mod.bias.zero_()

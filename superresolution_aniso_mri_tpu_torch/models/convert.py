@@ -6,18 +6,25 @@ path maps to the port's module path component by component:
 
     Conv_i                      ↔ convs.i
     BatchNorm_i                 ↔ bns.i      (scale ↔ weight)
-    head_cls_bn (MultiChannelAE's class-head BatchNorm)
-                                ↔ head_cls_bn
+    head_cls_bn (MultiChannelAE's class-head BatchNorm), to_latent_bn,
+    from_latent_bn (LegacyAEAdv's)
+                                ↔ themselves (scale ↔ weight)
     ConvTranspose_i             ↔ ups.i
+    Dense_i                     ↔ dense.i
     ResBlock_i/Conv_{0,1}       ↔ res.i.conv{0,1}
+    BasicEncoderBlock_i, BasicDecoderBlock_i (the legacy models)
+                                ↔ enc_blocks.i, dec_blocks.i
     Encoder_0 (the ACAI critic) ↔ encoder
-    anything else (enc, dec, stem, head, out, encoder_mu, ae, disc, …)
-                                ↔ itself
+    Decoder_0 (AlphaDecoder)    ↔ decoder
+    _CompressZ_0 (the probes)   ↔ compress
+    anything else (enc, dec, stem, head, out, encoder_mu, ae, disc,
+    probe, decoder_mix, …)      ↔ itself
     batch_stats …/BatchNorm_i   ↔ running_mean / running_var
 
 so ``params/enc/Conv_3/kernel`` is ``enc.convs.3.weight`` and the ACAI
-family's ``{"ae": …, "disc": …}`` trees are the state dict of a
-``ModuleDict`` with ``ae`` and ``disc``. Conv kernels go HWIO ↔ OIHW,
+family's ``{"ae": …, "disc": …}`` trees (the alpha families' ``{"ae",
+"probe"[, "decoder_mix"]}``) are the state dict of a ``ModuleDict`` with
+those keys. Conv kernels go HWIO ↔ OIHW,
 Dense kernels ``[in, out]`` ↔ ``[out, in]``. A flax ``ConvTranspose``
 (no kernel transpose) dilates its input by the stride, pads it by the
 given ((2, 2), (2, 2)) and CORRELATES with the (kh, kw, in, out) kernel.
@@ -44,11 +51,14 @@ from ..device import to_host
 from .config import AEConfig
 
 _INDEXED = {"Conv": "convs", "BatchNorm": "bns", "ConvTranspose": "ups",
-            "ResBlock": "res"}
+            "ResBlock": "res", "Dense": "dense",
+            "BasicEncoderBlock": "enc_blocks",
+            "BasicDecoderBlock": "dec_blocks"}
 _FLAX_NAME = {v: k for k, v in _INDEXED.items()}
-_RENAMED = {"Encoder_0": "encoder"}
+_RENAMED = {"Encoder_0": "encoder", "Decoder_0": "decoder",
+            "_CompressZ_0": "compress"}
 # BatchNorms that flax names by their attribute, not BatchNorm_i
-_NAMED_BATCHNORMS = ("head_cls_bn",)
+_NAMED_BATCHNORMS = ("head_cls_bn", "to_latent_bn", "from_latent_bn")
 _FLAX_RENAMED = {v: k for k, v in _RENAMED.items()}
 
 
@@ -179,8 +189,8 @@ def flax_to_torch(params, batch_stats, cfg: AEConfig, model=None,
                   device=None) -> Dict[str, torch.Tensor]:
     """State dict for ``model`` (default ``VanillaACAI(cfg)``) from a
     flax ``(params, batch_stats)`` tree of numpy arrays. A family
-    wrapper ``{"ae": …, "disc": …}`` gives its ``ae`` part unless
-    ``model`` is itself the ``{"ae", "disc"}`` pair. The tensors are on
+    wrapper (``{"ae", "disc"}``, ``{"ae", "probe"[, "decoder_mix"]}``)
+    gives its ``ae`` part unless ``model`` is itself the wrapper. The tensors are on
     ``device`` (default the CPU). Raises when the tree and the model
     disagree (a missing or extra layer, or a wrong shape)."""
     if model is None:

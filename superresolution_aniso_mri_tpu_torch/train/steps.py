@@ -1,12 +1,13 @@
-"""Train and eval steps of the ``ae``, ``ae_combined``, ``vae``,
-``acai`` and the labeled ``multichannel`` / ``multichannel_combined``
-families.
+"""Train and eval steps of every model family: ``ae``, ``ae_combined``,
+``vae``, ``acai``, the labeled ``multichannel`` /
+``multichannel_combined`` and the alpha probes' ``alpha`` /
+``alpha_end_to_end`` / ``alpha_only`` / ``alpha_combined``.
 
 Port of ``superresolution_aniso_mri_tpu/train/steps.py`` (``LossConfig``,
 ``_recon_loss``, ``_mix_image_loss``, ``_wmse``, ``_train_latent_mix``,
 ``_ae_losses``, ``_vae_losses``, ``_acai_losses``,
-``_multichannel_losses``, ``make_train_step``, ``make_eval_step``),
-NCHW.
+``_multichannel_losses``, ``alpha_mix``, ``_alpha_losses``,
+``make_train_step``, ``make_eval_step``), NCHW.
 
 Batch contract (``data/transforms.py::device_batch``):
   image          [2B, C, H, W]  from-slices ∥ to-slices
@@ -19,12 +20,14 @@ Batch contract (``data/transforms.py::device_batch``):
                                 noise (F = the heads' width, flax order)
   noise_alpha    [B]            acai family: the critic's mixing
                                 coefficients, U[0, 0.5)
+  alpha_features [B, 5]         alpha families: the probe's slice-geometry
+                                features (``data/pairs.py``); required
 
 The multichannel families' images carry two planes, (image, label):
 the reconstruction and synthesis losses read plane 0, and the Dice terms
 take plane 1 truncated to int32 class ids. As in JAX they never read
-``loss_mask`` (``--get_masks`` loads it, the masked losses belong to the
-alpha families).
+``loss_mask`` (``--get_masks`` loads it); the alpha families' synthesis
+loss is the masked one.
 
 JAX draws the noise inside its step from a threefry key; here it is an
 input, drawn by the trainer from its generator (``draw_noise``) or given
@@ -42,7 +45,11 @@ batch statistics and advance nothing.
 The ACAI model is the ``{"ae", "disc"}`` ``ModuleDict``; its step takes
 the gradient of ``loss_ae_full + loss_disc`` over both groups, which is
 the reference's twin backward, and the Laplacian term is logged but
-never enters it.
+never enters it. The alpha families' model is the ``{"ae", "probe"[,
+"decoder_mix"]}`` ``ModuleDict`` under one optimizer; their gradient
+stops are JAX's (see ``_alpha_losses``), and a parameter that a loss
+does not reach (``alpha_only``'s autoencoder) gets a zero gradient, as
+in JAX.
 
 Losses: MSE, or with ``lpips_params`` the VGG LPIPS (``perceptual``)
 or the encoder-backbone distance (``perceptual_enc``) for the
@@ -92,9 +99,10 @@ FAMILY_OF_MODEL = {
 
 @dataclasses.dataclass(frozen=True)
 class LossConfig:
-    """The JAX package's loss configuration, the fields of the ``ae``,
-    ``vae``, ``acai`` and multichannel families (same names and
-    defaults). The alpha families' fields come with ROADMAP item 9c.
+    """The JAX package's loss configuration (same names and defaults).
+    ``num_alphas`` and ``alpha_scheme`` (``'pair'``, ``'convex'``,
+    ``'halves'``, ``'spatial'``; empty: chosen from the count) describe
+    the alpha probe's output, ``latent`` the latent's channels.
     ``lpips_dtype`` is the precision of the perceptual distance's
     backbone ('float32' or 'bfloat16')."""
 
@@ -112,6 +120,9 @@ class LossConfig:
     gamma_reg_acai: float = 0.2
     nclasses: int = 4
     dice_weight: float = 0.1
+    num_alphas: int = 32
+    alpha_scheme: str = ""
+    latent: int = 16
     lpips_dtype: str = "float32"
 
     @property
@@ -124,12 +135,7 @@ class LossConfig:
 
 
 def check_supported(cfg: LossConfig) -> None:
-    """Raise NotImplementedError for what the port does not train yet,
-    naming the ROADMAP item that lifts it."""
-    if cfg.family == "alpha":
-        raise NotImplementedError(
-            f"model {cfg.model!r} (family 'alpha'): the alpha-probe "
-            f"families are not ported yet (ROADMAP item 9c)")
+    """Raise ValueError for a configuration no step can train."""
     if cfg.train_latent_interp not in ("linear", "cubic", "lanczos3"):
         raise ValueError(f"unknown train_latent_interp "
                          f"{cfg.train_latent_interp!r}")
@@ -393,6 +399,113 @@ def _multichannel_losses(model, cfg: LossConfig, lpips_params: Any,
     return total, {k: v.detach() for k, v in metrics.items()}
 
 
+def alpha_mix(alpha: torch.Tensor, z1: torch.Tensor, z3: torch.Tensor,
+              num_alphas: int, latent: int, scheme: str = "") -> torch.Tensor:
+    """The latent mix of the probe's coefficients ``alpha`` [B, n]:
+    ``pair`` (n = 2, any latent rank) ``a0 * z1 + a1 * z3``; on conv
+    latents [B, C, lw, lw] ``convex`` (n = C) ``a * z1 + (1 - a) * z3``
+    per channel, ``halves`` (n = 2C) per channel with the first half on
+    ``z1``, ``spatial`` (n = lw²) ``a * z1 + (1 - a) * z3`` per position
+    (row-major, as JAX's NHWC ``[B, lw, lw, 1]``). An empty ``scheme``
+    is chosen from ``num_alphas`` as JAX does."""
+    b = z1.shape[0]
+    if not scheme:
+        scheme = ("pair" if num_alphas == 2 else
+                  "convex" if num_alphas == latent else
+                  "halves" if num_alphas == 2 * latent else "spatial")
+    if scheme == "pair":
+        shape = (b,) + (1,) * (z1.ndim - 1)
+        return (alpha[:, 0].reshape(shape) * z1
+                + alpha[:, 1].reshape(shape) * z3)
+    if z1.ndim != 4:
+        raise ValueError(
+            f"alpha_mix scheme {scheme!r} needs conv latents "
+            f"[B, c, lw, lw], got shape {tuple(z1.shape)} — only the "
+            f"'pair' scheme supports dense latents")
+    if scheme == "convex":
+        a = alpha[:, :, None, None]
+        return a * z1 + (1.0 - a) * z3
+    if scheme == "halves":
+        return (alpha[:, :latent, None, None] * z1
+                + alpha[:, latent:, None, None] * z3)
+    lw = z1.shape[2]
+    a = alpha.reshape(b, 1, lw, lw)
+    return a * z1 + (1.0 - a) * z3
+
+
+def _alpha_features(batch: Batch) -> torch.Tensor:
+    if "alpha_features" not in batch:
+        raise KeyError(
+            "alpha-family batches need 'alpha_features' [B, 5] "
+            "(TripletSampler emits them; see data/pairs.py and "
+            "data/transforms.py::device_batch)")
+    return batch["alpha_features"]
+
+
+def _alpha_losses(models, cfg: LossConfig, lpips_params: Any, batch: Batch,
+                  mix_weight) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, metrics) of the alpha families, with JAX's gradient stops:
+
+    * ``alpha``: the probe's input is detached, the mix keeps the live
+      latents; the decode of the mix and the encodes of
+      ``slice_between`` and of the synthesized slice carry no gradient,
+      so only ``loss_latent_1`` trains the probe (and, with the
+      reconstruction, the encoder);
+    * ``alpha_end_to_end``: nothing detached;
+    * ``alpha_only``: the autoencoder runs in eval mode (running
+      statistics, which never move) and carries no gradient; the loss is
+      the probe's alone, its image term weighted 0.005;
+    * ``alpha_combined``: as end to end, the mix decoded by
+      ``decoder_mix`` in train mode.
+
+    The image and latent terms weigh 0.5 each; ``mix_weight`` is unused.
+    The synthesis loss is ``_mix_image_loss``, masked by ``loss_mask``
+    with ``use_masks`` and weighted by ``is_inbetween``."""
+    variant = cfg.model
+    ae, probe = models["ae"], models["probe"]
+    dec_mix = models["decoder_mix"] if "decoder_mix" in models else None
+    x, between = batch["image"], batch["slice_between"]
+    feats = _alpha_features(batch)
+    b = x.shape[0] // 2
+    ae_train = variant != "alpha_only"
+    frozen = variant in ("alpha", "alpha_only")
+    with torch.set_grad_enabled(ae_train):
+        z = ae.encode(x, train=ae_train)
+        out = ae.decode(z, train=ae_train)
+    z1, z3 = z[:b], z[b:]
+    z_cat = torch.cat([z1, z3], dim=1)
+    alpha = probe(z_cat.detach() if frozen else z_cat, feats, train=True)
+    z_mix = alpha_mix(alpha, z1, z3, cfg.num_alphas, cfg.latent,
+                      cfg.alpha_scheme)
+    with torch.set_grad_enabled(not frozen):
+        if variant == "alpha_combined" and dec_mix is not None:
+            s_mix = dec_mix(z_mix, train=True)
+        else:
+            s_mix = ae.decode(z_mix, train=ae_train, update_stats=False)
+        z_ref = ae.encode(between, train=ae_train, update_stats=False)
+        z_syn = ae.encode(s_mix, train=ae_train, update_stats=False)
+    loss_img = _mix_image_loss(cfg, lpips_params, between, s_mix,
+                               batch.get("loss_mask"),
+                               sample_weight=batch.get("is_inbetween"))
+    l_lat1 = mse(z_ref, z_mix)
+    l_lat2 = mse(z_ref, z_syn)
+    img_w = 0.005 if variant == "alpha_only" else 0.5
+    loss_extra = img_w * loss_img + 0.5 * (l_lat1 + l_lat2)
+    metrics = {"loss_latent_1": l_lat1, "loss_latent_2": l_lat2,
+               "loss_ae_dist_extra": loss_img, "loss_ae_extra": loss_extra,
+               "pred_alpha_mean": alpha.mean()}
+    if variant == "alpha_only":
+        total = loss_extra
+        metrics["loss_ae_dist"] = mse(out, x)
+    else:
+        loss_ae, loss_dist, loss_lap = _recon_loss(cfg, lpips_params, out, x)
+        total = loss_ae + loss_extra
+        metrics["loss_ae_dist"] = loss_dist
+        metrics["loss_laploss"] = loss_lap
+    metrics["loss_ae"] = total
+    return total, {k: v.detach() for k, v in metrics.items()}
+
+
 def _update(state: TrainState, cfg: LossConfig, lpips_params: Any,
             batch: Batch, scalars: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Forward, backward and the optimizer update of one step, in place
@@ -405,10 +518,15 @@ def _update(state: TrainState, cfg: LossConfig, lpips_params: Any,
     losses = {"vae": _vae_losses, "acai": _acai_losses,
               "multichannel": _multichannel_losses,
               "multichannel_combined": _multichannel_losses,
+              "alpha": _alpha_losses,
               }.get(cfg.family, _ae_losses)
     loss, metrics = losses(state.model, cfg, lpips_params, batch,
                            scalars.reshape(-1)[3])
-    grads = torch.autograd.grad(loss, list(params.values()))
+    # a parameter the loss does not reach (alpha_only's autoencoder) has
+    # a zero gradient, as in JAX
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+        params.values(), torch.autograd.grad(loss, list(params.values()),
+                                             allow_unused=True))]
     state.tx.apply({k: p.data for k, p in params.items()},
                    dict(zip(params, grads)), state.opt_state, scalars)
     return metrics
@@ -563,17 +681,23 @@ def make_eval_step(cfg: LossConfig, lpips_params: Any = None) -> Callable:
     ``ae``; the multichannel families score the image plane, unmasked as
     their train loss, and ``multichannel_combined`` adds the mix's Dice
     (``loss_ae_dist_labels``) and the sum that selects ``caisr.models``
-    (``loss_ae_extra``)."""
+    (``loss_ae_extra``). The alpha families mix with the probe's
+    coefficients (the probe in eval mode; ``decoder_mix`` decodes the
+    mix when the model has one) and return them as ``pred_alphas`` in
+    the aux."""
     check_supported(cfg)
     labeled = cfg.family.startswith("multichannel")
+    alpha_family = cfg.family == "alpha"
 
     @torch.no_grad()
     def eval_step(model, batch: Batch, mix_weight=None):
         w = 1.0 if mix_weight is None else mix_weight
         x = batch["image"]
         between = batch["slice_between"]
-        if cfg.family == "acai":
+        models = model
+        if cfg.family in ("acai", "alpha"):
             model = model["ae"]
+        aux_extra = {}
         with f32_exact():
             if cfg.family == "vae":
                 z = model.encode_mu(x)
@@ -589,12 +713,24 @@ def make_eval_step(cfg: LossConfig, lpips_params: Any = None) -> Callable:
                     recon = recon["image"]
                 loss_ae, loss_dist, lap = _recon_loss(
                     cfg, lpips_params, recon, x[:, 0:1] if labeled else x)
-                z_mix = (_train_latent_mix(model, cfg, z, batch, train=False)
-                         if cfg.family in ("ae", "ae_combined")
-                         else latent_mix(z, batch["alpha_from"],
-                                         batch["alpha_to"]))
+                if alpha_family:
+                    b = x.shape[0] // 2
+                    alpha = models["probe"](torch.cat([z[:b], z[b:]], dim=1),
+                                            _alpha_features(batch))
+                    z_mix = alpha_mix(alpha, z[:b], z[b:], cfg.num_alphas,
+                                      cfg.latent, cfg.alpha_scheme)
+                    aux_extra["pred_alphas"] = alpha
+                elif cfg.family in ("ae", "ae_combined"):
+                    z_mix = _train_latent_mix(model, cfg, z, batch,
+                                              train=False)
+                else:
+                    z_mix = latent_mix(z, batch["alpha_from"],
+                                       batch["alpha_to"])
                 z_ref = model.encode(between)
-            s_mix = mix_out = model.decode(z_mix)
+            if alpha_family and "decoder_mix" in models:
+                s_mix = mix_out = models["decoder_mix"](z_mix)
+            else:
+                s_mix = mix_out = model.decode(z_mix)
             if labeled:
                 s_mix = mix_out["image"]
             metrics = {"loss_ae": loss_ae, "loss_ae_dist": loss_dist,
@@ -614,6 +750,7 @@ def make_eval_step(cfg: LossConfig, lpips_params: Any = None) -> Callable:
                     metrics["loss_ae_dist_labels"] = w * mix_labels
                     metrics["loss_ae_extra"] = w * (loss_mix + mix_labels)
         return metrics, {"reconstruction": recon,
-                         "slice_inbetween_mix": s_mix, "z_mix": z_mix}
+                         "slice_inbetween_mix": s_mix, "z_mix": z_mix,
+                         **aux_extra}
 
     return eval_step

@@ -2,12 +2,14 @@
 checkpoints and best-model aliases; ``get_trainer`` rebuilds one from an
 experiment directory.
 
-Port of ``superresolution_aniso_mri_tpu/train/trainer.py`` but its
-alpha families, for every ``ae_class`` of ``models.MODEL_REGISTRY``
-(``-m vae``/``vae_combined`` route to ``VAE``, ``vae2`` to ``VAE2``,
-``-d ACDCLBL`` to ``MultiChannelAE`` and the ``multichannel`` /
-``multichannel_combined`` families; the ACAI family trains the ``{"ae",
-"disc"}`` ``ModuleDict`` under a ``PartitionOptimizer``). It writes the
+Port of ``superresolution_aniso_mri_tpu/train/trainer.py``, for every
+``ae_class`` of ``models.MODEL_REGISTRY`` (``-m vae``/``vae_combined``
+route to ``VAE``, ``vae2`` to ``VAE2``, ``-d ACDCLBL`` to
+``MultiChannelAE`` and the ``multichannel`` / ``multichannel_combined``
+families; the ACAI family trains the ``{"ae", "disc"}`` ``ModuleDict``
+under a ``PartitionOptimizer``; the alpha families the ``{"ae",
+"probe"[, "decoder_mix"]}`` ``ModuleDict`` under one Adam with no weight
+decay, the probe of ``--alpha_class`` with 5 features). It writes the
 JAX package's experiment files under ``output_dir``:
 
   settings.yaml                (``config/settings.py``)
@@ -31,14 +33,14 @@ artifact for ``perceptual_enc``) and records their mode in
 graph replayed per step on the card). The step's random draws (ACAI's
 critic alphas, the VAE's reparametrisation noise) come from the
 trainer's own ``torch.Generator`` on its device, seeded from the seed,
-and enter the batch (``draw_noise``). Not ported, and raising: the
-alpha families (item 9c) and, when training, ``num_devices > 1`` (item
-11). A training trainer whose ``ae_class`` cannot feed its family's
-loss (``MultiChannelAE``'s ``{"image", "soft_probs"}`` outside the
-multichannel families, or another class in them) raises a ValueError;
-JAX builds it and fails at its first step. An ``eval_mode`` trainer
-(serving, scoring) builds no train or eval step, so the training-only
-options of the experiment do not matter.
+and enter the batch (``draw_noise``). Not ported, and raising: when
+training, ``num_devices > 1`` (item 11). A training trainer whose
+``ae_class`` cannot feed its family's loss (``MultiChannelAE``'s
+``{"image", "soft_probs"}`` outside the multichannel families, or
+another class in them) raises a ValueError; JAX builds it and fails at
+its first step. An ``eval_mode`` trainer (serving, scoring) builds no
+train or eval step, so the training-only options of the experiment do
+not matter.
 """
 from __future__ import annotations
 
@@ -52,9 +54,10 @@ import torch
 
 from ..config.settings import (apply_setting_defaults, load_settings,
                                save_experiment_settings)
-from ..device import resolve_device
-from ..models import (AEConfig, Discriminator, build_model, flax_to_torch,
-                      reset_parameters)
+from ..device import f32_exact, resolve_device
+from ..models import (AEConfig, AlphaDecoder, Discriminator, build_model,
+                      flax_to_torch, make_alpha_probe, reset_parameters)
+from ..models.alpha import ALPHA_FEATURES
 from ..models.convert import torch_to_flax
 from ..ops.lpips import get_lpips_params, lpips_weights_info
 from ..ops.perceptual import get_enc_perceptual_params
@@ -65,22 +68,66 @@ from .steps import (FAMILY_OF_MODEL, LossConfig, make_eval_step,
                     make_multi_train_step, make_train_step)
 
 
+# the probe class of an alpha experiment without --alpha_class
+DEFAULT_ALPHA_CLASS = "AlphaProbe16v1"
+
+
+def alpha_mix_scheme(alpha_class: str) -> str:
+    """The mixing scheme of a probe class (``steps.alpha_mix``): a
+    property of the class, since coefficient counts can coincide."""
+    if alpha_class in ("AlphaProbe", "AlphaProbev2"):
+        return "pair"
+    if alpha_class == "AlphaProbe16Convex":
+        return "convex"
+    if alpha_class in ("AlphaProbe16v1", "AlphaProbe16v2",
+                       "AlphaProbe16ExBN"):
+        return "halves"
+    if alpha_class.startswith("AlphaProbe256"):
+        return "spatial"
+    raise ValueError(f"unknown alpha_class {alpha_class!r}")
+
+
+def alpha_num_coefficients(alpha_class: str, latent: int,
+                           latent_width: int) -> int:
+    """The number of coefficients a probe class predicts."""
+    return {"pair": 2, "convex": latent, "halves": 2 * latent,
+            "spatial": latent_width * latent_width}[
+                alpha_mix_scheme(alpha_class)]
+
+
 def loss_config_from_args(args: Dict[str, Any]) -> LossConfig:
-    """The JAX package's ``loss_config_from_args`` for the non-alpha
-    families: ``-d ACDCLBL`` trains ``multichannel_combined`` when the
-    model flag is a combined one, else ``multichannel``. The alpha
-    families raise (ROADMAP item 9c)."""
+    """The JAX package's ``loss_config_from_args``: ``-d ACDCLBL`` trains
+    ``multichannel_combined`` when the model flag is a combined one, else
+    ``multichannel`` (not the alpha families, which keep their flag);
+    the alpha families' synthesis loss is ``alpha_loss_func`` and their
+    probe ``alpha_class`` (default ``DEFAULT_ALPHA_CLASS``)."""
     model_name = args["model"]
-    if model_name.startswith("alpha"):
-        raise NotImplementedError(
-            f"model {model_name!r}: the alpha-probe families are not "
-            f"ported yet (ROADMAP item 9c)")
-    if args.get("dataset") == "ACDCLBL":
+    if args.get("dataset") == "ACDCLBL" and not model_name.startswith(
+            "alpha"):
         model_name = ("multichannel_combined" if "combined" in model_name
                       else "multichannel")
-    mix = args.get("image_mix_loss_func")
-    if mix is None:
-        mix = "perceptual" if args.get("use_percept_loss") else "mse"
+
+    def mix_fallback(key: str) -> str:
+        fn = args.get(key)
+        if fn is None:
+            fn = "perceptual" if args.get("use_percept_loss") else "mse"
+        return fn
+
+    if model_name.startswith("alpha"):
+        alpha_class = args.get("alpha_class") or DEFAULT_ALPHA_CLASS
+        return LossConfig(
+            model=model_name,
+            recon_loss="perceptual" if args.get("use_percept_loss") else "mse",
+            use_laploss=bool(args.get("use_laploss", False)),
+            image_mix_loss_func=mix_fallback("alpha_loss_func"),
+            use_masks=bool(args.get("get_masks", False)),
+            num_alphas=alpha_num_coefficients(
+                alpha_class, int(args["latent"]), int(args["latent_width"])),
+            alpha_scheme=alpha_mix_scheme(alpha_class),
+            latent=int(args["latent"]),
+            lpips_dtype=str(args.get("compute_dtype") or "float32"),
+        )
+    mix = mix_fallback("image_mix_loss_func")
     tli = str(args.get("train_latent_interp") or "linear")
     if tli != "linear" and FAMILY_OF_MODEL.get(model_name) not in (
             "ae", "ae_combined"):
@@ -197,6 +244,15 @@ class Trainer:
             if self.family == "acai":
                 model = torch.nn.ModuleDict(
                     {"ae": model, "disc": Discriminator(self.model_config)})
+            elif self.family == "alpha":
+                model = torch.nn.ModuleDict({"ae": model, "probe": (
+                    make_alpha_probe(
+                        self.args.get("alpha_class") or DEFAULT_ALPHA_CLASS,
+                        self.model_config, additional_dims=ALPHA_FEATURES,
+                        use_batchnorm=bool(self.args.get(
+                            "use_batchnorm_probe", False))))})
+                if self.args["model"] == "alpha_combined":
+                    model["decoder_mix"] = AlphaDecoder(self.model_config)
         reset_parameters(model, torch.Generator().manual_seed(seed))
         self.noise_generator = torch.Generator(
             device=self.device).manual_seed(seed)
@@ -209,7 +265,9 @@ class Trainer:
                     "iterations of the cosine anneal)")
             cosine_steps = int(lim)
         lr = float(self.args["lr"])
-        wd = float(self.args.get("weight_decay", 0.0))
+        # the alpha families' one Adam over every group has no decay
+        wd = (0.0 if self.family == "alpha"
+              else float(self.args.get("weight_decay", 0.0)))
         clip = float(self.args.get("max_grad_norm", 0) or 0)
         ae_tx = make_optimizer(lr, wd, float(self.args.get("momentum", 0.9)),
                                cosine_steps, clip,
@@ -353,7 +411,7 @@ class Trainer:
         return metrics
 
     def _ae_model(self) -> torch.nn.Module:
-        """The autoencoder (the ACAI family's ``ae``)."""
+        """The autoencoder (the ACAI and alpha families' ``ae``)."""
         model = self.model
         return model["ae"] if isinstance(model, torch.nn.ModuleDict) else model
 
@@ -361,6 +419,55 @@ class Trainer:
         """(parameters, buffers) of the autoencoder, as ``ServingModel``'s."""
         ae = self._ae_model()
         return dict(ae.named_parameters()), dict(ae.named_buffers())
+
+    def _serving_ae(self, use_sr_model: bool) -> torch.nn.Module:
+        if use_sr_model and self.params_sr is not None:
+            raise NotImplementedError(
+                "the AE+CAISR combo (params_sr) is not ported yet "
+                "(ROADMAP item S3)")
+        return self._ae_model()
+
+    @torch.no_grad()
+    def encode(self, x, use_sr_model: bool = False) -> torch.Tensor:
+        """Eval-mode latents of NCHW images ``x`` (a tensor or array) on
+        the trainer's device; ``use_sr_model`` falls back to the
+        autoencoder when no SR model is loaded, as in JAX."""
+        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        ae = self._serving_ae(use_sr_model)
+        with f32_exact():
+            if self.family == "vae":
+                return ae.encode_mu(x)
+            return ae.encode(x)
+
+    @torch.no_grad()
+    def decode(self, z, use_sr_model: bool = False):
+        """Eval-mode decode of latents ``z`` (MultiChannelAE: its
+        ``{"image", "soft_probs"}``)."""
+        z = torch.as_tensor(z, dtype=torch.float32, device=self.device)
+        with f32_exact():
+            return self._serving_ae(use_sr_model).decode(z)
+
+    def predict(self, x, use_sr_model: bool = False):
+        return self.decode(self.encode(x, use_sr_model), use_sr_model)
+
+    @torch.no_grad()
+    def predict_alpha(self, z_cat, features) -> torch.Tensor:
+        """The probe's coefficients (eval mode) for the channel
+        concatenation ``z_cat`` [B, 2 * latent, lw, lw] of two latents
+        and their features [B, 5]; alpha families only."""
+        model = self.model
+        if not (isinstance(model, torch.nn.ModuleDict) and "probe" in model):
+            raise ValueError("predict_alpha requires an alpha-family model")
+        z_cat = torch.as_tensor(z_cat, dtype=torch.float32,
+                                device=self.device)
+        feats = torch.as_tensor(features, dtype=torch.float32,
+                                device=self.device)
+        with f32_exact():
+            return model["probe"](z_cat, feats)
+
+    @property
+    def num_alphas(self) -> int:
+        return int(self.loss_config.num_alphas)
 
     # ------------------------------------------------------------------
     # checkpoints and loss archives

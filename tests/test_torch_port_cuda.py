@@ -1,7 +1,7 @@
 """PyTorch port on the card: the CUDA SSIM kernel against its plain
 version, the serving, scoring and training entry points on CUDA against
-the same calls on the CPU (the labeled MultiChannelAE path included),
-and the experiment-directory commands. Every test here needs an NVIDIA
+the same calls on the CPU (the labeled MultiChannelAE path and the
+alpha families included), and the experiment-directory commands. Every test here needs an NVIDIA
 GPU and skips without one.
 
 This file imports neither JAX nor the JAX package, so it runs where
@@ -628,6 +628,116 @@ def test_labeled_serving_and_dice_on_card_match_cpu(cuda):
     labels = torch.randint(0, 4, (3, 20, 24), dtype=torch.int32)
     assert abs(float(dice_loss(probs.cuda(), labels.cuda(), 4))
                - float(dice_loss(probs, labels, 4))) <= 1e-6
+
+
+ALPHA_ARGS = dict(lr=1e-5, dataset="ACDC", width=32, latent_width=8,
+                  depth=4, latent=6, use_batchnorm=True, use_sigmoid=True,
+                  seed=2)
+
+
+def _alpha_batches(rng, n, device):
+    """Train batches with the probes' ``alpha_features`` and a loss mask
+    on ``device``."""
+    out = []
+    for b in _graph_batches(rng, n, 2):
+        b["alpha_features"] = torch.from_numpy(
+            rng.rand(2, 5).astype(np.float32)).cuda()
+        b["loss_mask"] = torch.from_numpy(
+            (rng.rand(2, 1, 32, 32) > 0.3).astype(np.float32)).cuda()
+        out.append({k: v.to(device) for k, v in b.items()})
+    return out
+
+
+@pytest.mark.parametrize("model, alpha_class", [
+    ("alpha", "AlphaProbe"), ("alpha_end_to_end", "AlphaProbe256v1"),
+    ("alpha_only", "AlphaProbe16Convex"), ("alpha_combined", "AlphaProbe16v1"),
+])
+def test_alpha_steps_on_card_match_cpu(cuda, model, alpha_class):
+    """3 steps of each alpha family (masked synthesis loss, the probe's
+    BatchNorm) on the card against the CPU from the same weights and
+    batches: every metric within 1e-5 relative; the parameters' movement
+    θ3 − θ0 within 0.1 of its largest entry for 99.5 % of the entries
+    (Adam's first steps are near-sign steps of size lr, so only an entry
+    whose update changed sign moves far from the other side's);
+    alpha_only's autoencoder unchanged on both."""
+    from superresolution_aniso_mri_tpu_torch.train import Trainer
+
+    args = dict(ALPHA_ARGS, model=model, alpha_class=alpha_class,
+                use_batchnorm_probe=True, get_masks=True)
+    card, cpu = Trainer(args, device=cuda), Trainer(args, device="cpu")
+    cpu.model.load_state_dict({k: v.cpu() for k, v in
+                               card.model.state_dict().items()})
+    ae0 = {k: v.clone() for k, v in cpu.model["ae"].state_dict().items()}
+    theta0 = [p.detach().clone() for p in cpu.model.parameters()]
+    rng = np.random.RandomState(7)
+    for b in _alpha_batches(rng, 3, cuda):
+        _, cm = card.train_step(card.state, b, 0.3)
+        _, hm = cpu.train_step(cpu.state, {k: v.cpu() for k, v in b.items()},
+                               0.3)
+        for k in hm:
+            assert abs(float(cm[k]) - float(hm[k])) <= 1e-5 * max(
+                abs(float(hm[k])), 1e-6), k
+    moves = [(p.detach().cpu() - p0, q.detach() - p0) for p, q, p0 in
+             zip(card.model.parameters(), cpu.model.parameters(), theta0)]
+    top = max(float(b.abs().max()) for _, b in moves)
+    gap = torch.cat([(a - b).abs().reshape(-1) for a, b in moves])
+    assert float((gap <= 0.1 * top).double().mean()) >= 0.995
+    if model == "alpha_only":
+        for k, v in ae0.items():
+            assert torch.equal(cpu.model["ae"].state_dict()[k], v)
+            assert torch.equal(card.model["ae"].state_dict()[k].cpu(), v)
+
+
+def test_alpha_graph_replay_matches_eager_steps(cuda, monkeypatch):
+    """``alpha_end_to_end`` (spatial probe, masked loss) under
+    ``make_multi_train_step``: the probe, the spatial mix and the
+    ``alpha_features`` buffer capture, and 4 replays equal 4 eager steps
+    from the same state and batches (1e-6 relative)."""
+    from superresolution_aniso_mri_tpu_torch.train import (
+        Trainer, make_multi_train_step, make_train_step)
+    from superresolution_aniso_mri_tpu_torch.train import steps as steps_mod
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    tr = Trainer(dict(ALPHA_ARGS, model="alpha_end_to_end",
+                      alpha_class="AlphaProbe256v1", get_masks=True),
+                 device=cuda)
+    rng = np.random.RandomState(8)
+    multi = make_multi_train_step(tr.loss_config, device=cuda)
+    replays = []
+    replay = steps_mod._CapturedStep.replay
+    monkeypatch.setattr(steps_mod._CapturedStep, "replay",
+                        lambda self, *a: replays.append(1) or replay(self, *a))
+    multi(tr.state, _alpha_batches(rng, steps_mod.WARMUP_STEPS + 1, cuda),
+          0.3)
+    eager_state = _clone_state(tr.state)
+    batches = _alpha_batches(rng, 4, cuda)
+    _, got = multi(tr.state, batches, 0.3)
+    assert len(replays) == 5
+    eager = make_train_step(tr.loss_config)
+    for i, b in enumerate(batches):
+        _, want = eager(eager_state, b, 0.3)
+        for k, v in want.items():
+            assert abs(float(got[k][i]) - float(v)) <= 1e-6 * abs(float(v)), k
+    for (k, p), q in zip(tr.state.model.state_dict().items(),
+                         eager_state.model.state_dict().values()):
+        assert float((p - q).abs().max()) <= 1e-6 * float(q.abs().max()), k
+
+
+def test_alpha_mix_spatial_on_card_matches_cpu(cuda):
+    """The spatial scheme (one coefficient per latent position, JAX's
+    row-major order) on the card against the CPU, and the other schemes
+    (atol 1e-6)."""
+    from superresolution_aniso_mri_tpu_torch.train.steps import alpha_mix
+
+    rng = np.random.RandomState(9)
+    z1, z3 = (torch.from_numpy(rng.randn(3, 6, 8, 8).astype(np.float32))
+              for _ in range(2))
+    for scheme, n in (("spatial", 64), ("pair", 2), ("convex", 6),
+                      ("halves", 12)):
+        a = torch.from_numpy(rng.rand(3, n).astype(np.float32))
+        want = alpha_mix(a, z1, z3, n, 6, scheme)
+        got = alpha_mix(a.cuda(), z1.cuda(), z3.cuda(), n, 6, scheme)
+        assert float((got.cpu() - want).abs().max()) <= 1e-6, scheme
 
 
 def test_failed_capture_raises_without_eager_fallback(cuda, monkeypatch):

@@ -151,13 +151,15 @@ def test_batch_splits_match_jax(c):
 @pytest.mark.parametrize("taps", [2, 4, 6])
 def test_device_batch_matches_jax(taps):
     """Sampler → upload → augment → split, against the JAX train loop's
-    ``_device_batch`` on the same sampler batch."""
+    ``_device_batch`` on the same sampler batch (the port carries the
+    sampler's ``alpha_features`` in every batch, JAX when asked)."""
     sampler = TripletSampler(_volumes(Volume), 3, pad_size=26, seed=4,
                              latent_taps=taps)
     raw = sampler.sample_batch(3)
     cfg = _det(patch_size=16, aug_patch_size=24)
     want = jax_device_batch(raw, JaxAugmentConfig(**cfg),
-                            jax.random.PRNGKey(0), latent_taps=taps)
+                            jax.random.PRNGKey(0), latent_taps=taps,
+                            with_alpha_features=True)
     got = device_batch(raw, AugmentConfig(**cfg), "cpu", latent_taps=taps)
     assert sorted(got) == sorted(want)
     for k, v in want.items():
@@ -262,15 +264,35 @@ def test_trainer_writes_the_jax_experiment_files(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra, item", [
-    (dict(model="alpha_combined"), "item 9c"),
     (dict(num_devices=2), "item 11"),
-    (dict(model="alpha"), "item 9c"),
 ])
 def test_trainer_raises_for_what_is_not_ported(extra, item):
     from superresolution_aniso_mri_tpu_torch.train import Trainer
 
     with pytest.raises(NotImplementedError, match=item):
         Trainer(dict(ARGS, **extra), device="cpu")
+
+
+@pytest.mark.parametrize("extra, keys", [
+    (dict(model="alpha_combined"), ["ae", "decoder_mix", "probe"]),
+    (dict(model="alpha"), ["ae", "probe"]),
+])
+def test_trainer_builds_the_alpha_families(extra, keys):
+    """The alpha families build the ``{"ae", "probe"[, "decoder_mix"]}``
+    model and take a step on a batch with ``alpha_features`` (their
+    parity is in ``test_torch_port_alpha.py``)."""
+    from superresolution_aniso_mri_tpu_torch.train import Trainer
+
+    t = Trainer(dict(ARGS, **extra), device="cpu")
+    assert sorted(t.model.keys()) == keys
+    rng = np.random.RandomState(0)
+    batch = {"image": torch.from_numpy(rng.rand(4, 1, 32, 32).astype(
+        np.float32)), "slice_between": torch.from_numpy(rng.rand(
+            2, 1, 32, 32).astype(np.float32)),
+        "alpha_from": torch.full((2,), 0.5), "alpha_to": torch.full((2,), 0.5),
+        "alpha_features": torch.from_numpy(rng.rand(2, 5).astype(np.float32))}
+    metrics = t.train(batch)
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
 
 
 def _labeled_batch(seed=0, b=2):

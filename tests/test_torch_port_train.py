@@ -374,12 +374,13 @@ def test_eval_step_matches_jax(case):
 
 @pytest.mark.parametrize("loss_kw, item", [
     (dict(model="multichannel"), None),
-    (dict(model="alpha_combined"), "item 9c"),
+    (dict(model="alpha_combined"), None),
 ])
 def test_unported_losses_raise(loss_kw, item):
-    """The alpha families raise naming their ROADMAP item; the
-    multichannel families build both steps (their parity is in
-    ``test_torch_port_labeled_train.py``)."""
+    """Every family builds both steps now: the multichannel and alpha
+    families' parity is in ``test_torch_port_labeled_train.py`` and
+    ``test_torch_port_alpha.py``; a case with an ``item`` would expect
+    NotImplementedError naming it."""
     cfg = LossConfig(**{**LOSS, **loss_kw})
     for build in (make_train_step, make_eval_step):
         if item is None:

@@ -53,10 +53,16 @@ def jax_family_model(ae_class, seed=0, **kw):
 def numpy_variables(model, seed):
     """(params, batch_stats) of a flax model at ``SMALL``'s width from a
     numpy seed (see ``jax_model``)."""
-    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0),
-                            jnp.zeros((1, model.config.width,
-                                       model.config.width,
-                                       model.config.colors)))
+    return numpy_tree(model, seed, jnp.zeros((1, model.config.width,
+                                              model.config.width,
+                                              model.config.colors)))
+
+
+def numpy_tree(model, seed, *inputs):
+    """(params, batch_stats) of a flax model called on ``inputs``: the
+    structure from ``jax.eval_shape(model.init)``, the values from a
+    numpy seed (see ``jax_model``)."""
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), *inputs)
     rng = np.random.RandomState(seed)
 
     def fill(path, leaf):
