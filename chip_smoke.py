@@ -143,13 +143,32 @@ Phases (any failure ends the run with a non-zero exit):
      ``reconstruct_in_patches`` on the card against the CPU; a forward of
      each legacy model on the card against the CPU. SSIM launches
      counted and each pair held against the plain version.
+ 14. evaluation of trained experiments, on phase 8's trees: train-brain
+     -m ae (the OASIS recipe's flags, 1 epoch) is the primary of the
+     AE+CAISR combo; ``load_caisr`` of phase 8's caisr.models, phase
+     11's acai_combined checkpoint (its ``ae``) and phase 10's
+     reference-torch export, in turn: the test volume served (its
+     synthesized slices the SR model's own, within ``COMBO_ATOL``, and
+     not the autoencoder's; its kept slices the primary's predict) and
+     scored with ``create_hr_images``; the combo on the card against
+     the CPU on a crop; ``combine_volumes`` of the AE-only and combo
+     NIfTI files, ``compare_quantitative`` of both against the volume;
+     ``evaluate_model_reconstruction`` on the validation and test
+     volumes; the rigid-transform table at 0 and 10 degrees;
+     ``compute_ppl`` of 64 pairs of 208 x 176 slices, and of 4 on the
+     card against the CPU; ``resample_sax_to_lax`` of one of phase 8's
+     cines onto a long-axis plane, card against CPU; train-brain -d
+     MNISTRoto (1 epoch, the recipe's widths) through the CLI and
+     ``create_brain_volumes`` on it. s/volume and s/call beside the
+     card; SSIM launches counted and each pair held against the plain
+     version.
 The main path (serve linear → score) runs with every kernel launch count
 set to 0 just before it and read just after; so do the train phase's
 path (serve the trained checkpoint → score), each find-best sweep of
 phase 7, phase 8's find-best, phase 9's scoring of the perceptual
 checkpoint and of the baselines, phase 10's scoring of the fitted
-table, phase 11's, phase 12's and phase 13's scoring paths (every pair
-each scored held against the plain version). The line before the last lists every
+table, phase 11's, 12's, 13's and 14's scoring paths (every pair each
+scored held against the plain version). The line before the last lists every
 kernel with its check, launches (``launches``: the main path;
 ``launches_by_path``: every counted path) and times; the last line is
 the device summary.
@@ -184,7 +203,10 @@ KERNEL_SHAPES = ((HR_SLICES, HW, HW), (8, 256, 256), (5, 129, 97),
                  (9, 241, 286),
                  # phase 13's probe-mixed slices: 4 of a frame's 128²
                  # center crop at ds 2
-                 (4, 128, 128))
+                 (4, 128, 128),
+                 # phase 14: an OASIS volume's 176 reconstructed slices,
+                 # a MNISTRoto validation volume (ds 4, width 64)
+                 (176, 208, 176), (33, 64, 64))
 KERNEL_ATOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
@@ -261,6 +283,16 @@ ALPHA_CARD_RTOL = 1e-5
 # host): it is held against the float64 forward instead, at the same
 # limit
 LEGACY_CARD_RTOL = 1e-5
+# phase 14: the combo's synthesized slices against the SR model's own
+# serving (the same decoder, other decode batches: cuDNN may pick other
+# float32 algorithms), and the merged AE + CAISR files against the
+# combo's; MNISTRoto at the OASIS recipe's widths (the sampler's
+# triplets are --width square, so no --aug_patch_size)
+COMBO_ATOL = 1e-5
+ROTO_ARGV = ["-d", "MNISTRoto", "-m", "ae_combined", "-b", "16", "--width",
+             "64", "--latent_width", "16", "--latent", "128",
+             "--downsample_steps", str(OASIS_DS), "-e", "1",
+             "--ex_loss_weight1", "0.001", "--image_mix_loss_func", "mse"]
 
 
 def log(msg: str) -> None:
@@ -2646,6 +2678,268 @@ def check_alpha(tmp: str, seed: int, card: str, dev,
     return out
 
 
+def _lax_grid(sax_shape, spacing) -> tuple:
+    """A long-axis plane through the middle of a [z, y, x] short-axis
+    stack: rows along the stack's z at its in-plane spacing, columns
+    along x; returns (the LAX [1, rows, x] shape, its normalised SAX
+    sampling grid)."""
+    from superresolution_aniso_mri_tpu_torch.evaluate import (
+        make_lax_identity_grid, make_transform)
+
+    z, y, x = sax_shape
+    dz, dy, dx = spacing
+    lax_shape = (1, int(round(z * dz / dx)), x)
+    scale_lax = np.diag([dx, dx, dx, 1.0])
+    swap_yz = np.array([[1.0, 0, 0, 0], [0, 0, 1, 0], [0, 1, 0, 0],
+                        [0, 0, 0, 1]])
+    shift = np.eye(4)
+    shift[1, 3] = y * dy / 2
+    scale_sax = np.diag([dx, dy, dz, 1.0])
+    grid = make_transform(make_lax_identity_grid(lax_shape), lax_shape,
+                          sax_shape, scale_lax, swap_yz, shift, scale_sax,
+                          np.eye(4), np.eye(4))
+    return lax_shape, grid.astype(np.float32)
+
+
+def check_eval(tmp: str, seed: int, card: str, dev) -> dict:
+    """Phase 14 (see the module docstring), on phase 8's trees in
+    ``tmp`` and the checkpoints of phases 8, 10 and 11; returns the SSIM
+    launches of its scoring paths, the kernel's largest error on the
+    pairs they scored and the phase's numbers."""
+    import warnings
+
+    import torch
+
+    from superresolution_aniso_mri_tpu_torch.cli import entry
+    from superresolution_aniso_mri_tpu_torch.data.datasets import (
+        get_datasets, load_brain_volumes)
+    from superresolution_aniso_mri_tpu_torch.evaluate import (
+        combine_volumes, compare_quantitative, compute_ppl,
+        create_brain_volumes, create_hr_images,
+        evaluate_model_reconstruction, resample_sax_to_lax,
+        test_interpolation_with_rigid_transformations)
+    from superresolution_aniso_mri_tpu_torch.infer import create_super_volume
+    from superresolution_aniso_mri_tpu_torch.train import get_trainer
+    from superresolution_aniso_mri_tpu_torch.utils import (read_image,
+                                                          write_image)
+
+    _free_cuda()
+    t_phase = time.perf_counter()
+    out: dict = {"launches": {}, "kernel_err": 0.0}
+
+    def scored(name, fn):
+        res, n, err, secs = _counted_scoring(fn, f"phase 14 {name}")
+        out["launches"][name] = n
+        out["kernel_err"] = max(out["kernel_err"], err)
+        out[f"{name}_s"] = secs
+        return res
+
+    # 1. the primary: -m ae, one epoch of the OASIS recipe, from another
+    # seed than the SR models (the same seed and data would leave the two
+    # a step of lr apart)
+    exper = os.path.join(tmp, "eval_ae")
+    t0 = time.perf_counter()
+    entry.train_brain(_with_epochs(_as_family(OASIS_ARGV, "ae"), 1)
+                      + ["-o", tmp, "-id", "eval_ae", "--seed",
+                         str(seed + 14)])
+    out["ae_train_s"] = time.perf_counter() - t0
+    primary = get_trainer(exper, "last")
+    val = get_datasets(primary.args)[1][:1]
+    test = load_brain_volumes("OASIS", OASIS_DS, "test",
+                              include_hr_images=True)
+    vol = np.asarray(test[0].image, np.float32)
+    serve = dict(alpha_range=np.linspace(0, 1, OASIS_DS + 1)[1:-1],
+                 downsample_steps=OASIS_DS, use_original=False,
+                 generate_inbetween_slices=True)
+    synth = np.ones(vol.shape[0], bool)
+    synth[::OASIS_DS] = False
+    synth[((vol.shape[0] - 1) // OASIS_DS) * OASIS_DS:] = False
+    ae_only = create_super_volume(primary, vol, **serve)["upsampled_image"]
+    # the reconstructed (kept) slices of the combo are the primary's
+    # predict of the kept stack, clamped as serving clamps
+    kept = torch.from_numpy(np.ascontiguousarray(
+        vol[:((vol.shape[0] - 1) // OASIS_DS) * OASIS_DS + 1:OASIS_DS,
+            None]))
+    recon = primary.predict(kept)[:, 0].clamp(0, 1).cpu().numpy()
+
+    # 2. the combo with each SR checkpoint: served, scored, checked
+    results = os.path.join(tmp, "eval_results")
+    sources = {"caisr": os.path.join(tmp, "oasis_cache"),
+               "acai": os.path.join(tmp, "acai"),
+               "reference_torch": os.path.join(tmp, "ref_exper")}
+    combo_files = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # the stem-geometry note
+        for name, src in sources.items():
+            sr_own = create_super_volume(get_trainer(src, "caisr"), vol,
+                                         **serve)["upsampled_image"]
+            primary.load_caisr(os.path.join(src, "models", "caisr.models"))
+            t0 = time.perf_counter()
+            combo = create_super_volume(primary, vol,
+                                        **serve)["upsampled_image"]
+            torch.cuda.synchronize()
+            out[f"combo_{name}_serve_s"] = time.perf_counter() - t0
+            synth_vs_sr = float(np.abs(combo[synth] - sr_own[synth]).max())
+            synth_vs_ae = float(np.abs(combo[synth] - ae_only[synth]).max())
+            recon_err = float(np.abs(combo[:len(recon) * OASIS_DS:OASIS_DS]
+                                     - recon).max())
+            out[f"combo_{name}_synth_vs_sr"] = synth_vs_sr
+            out[f"combo_{name}_synth_vs_ae"] = synth_vs_ae
+            out[f"combo_{name}_recon_vs_predict"] = recon_err
+            # phase 8's SR model's volume is written for section 3
+            res = scored(f"eval_combo_{name}_create_hr_images",
+                         lambda: create_hr_images(
+                             primary, test[:1], OASIS_DS,
+                             output_dir=os.path.join(results, name),
+                             save_volumes=name == "caisr"))
+            combo_files[name] = os.path.join(
+                results, name, test[0].patient_id,
+                f"{test[0].patient_id}_ae_{OASIS_DS}x.nii.gz")
+            log(f"eval combo ({name} SR model, {vol.shape} → "
+                f"{combo.shape}): synthesized slices vs the SR model's own "
+                f"{synth_vs_sr:.3e} (limit {COMBO_ATOL}), vs AE-only "
+                f"{synth_vs_ae:.3e} (must differ), reconstructed slices vs "
+                f"the AE's predict {recon_err:.3e} (limit 1e-6); serve "
+                f"{out[f'combo_{name}_serve_s']:.3f} s/volume, "
+                f"create_hr_images "
+                f"{out[f'eval_combo_{name}_create_hr_images_s']:.3f} s/volume, "
+                f"SSIM {res['aggregate']['ssim'][0]:.4f} [{card}]")
+            if not (synth_vs_sr <= COMBO_ATOL and synth_vs_ae > 1e-4
+                    and recon_err <= 1e-6
+                    and np.isfinite(res["aggregate"]["ssim"][0])):
+                raise AssertionError(f"the AE+CAISR combo with {name} "
+                                     f"serves wrongly")
+
+        # card against the CPU on a crop, phase 8's caisr as SR model
+        cpu = get_trainer(exper, "last", device="cpu")
+        for t in (primary, cpu):
+            t.load_caisr(os.path.join(sources["caisr"], "models",
+                                      "caisr.models"))
+    h0, w0 = (max(0, (n - 64) // 2) for n in vol.shape[1:])
+    crop = vol[:37, h0:h0 + 64, w0:w0 + 64].copy()
+    got = create_super_volume(primary, crop, **serve)["upsampled_image"]
+    want = create_super_volume(cpu, crop, **serve)["upsampled_image"]
+    out["combo_card_vs_cpu"] = float(np.abs(got - want).max())
+    log(f"eval combo card vs CPU {crop.shape}: max |Δ| "
+        f"{out['combo_card_vs_cpu']:.3e} (limit 1e-4)")
+    if not out["combo_card_vs_cpu"] <= 1e-4:
+        raise AssertionError("the combo serves differently on the card")
+
+    # 3. the AE-only volume written, merged with the SR model's, and the
+    # saved volumes compared against the reference
+    primary.params_sr = cpu.params_sr = None
+    scored("eval_ae_create_hr_images", lambda: create_hr_images(
+        primary, test[:1], OASIS_DS, output_dir=os.path.join(results, "ae"),
+        save_volumes=True))
+    ae_file = os.path.join(results, "ae", test[0].patient_id,
+                           f"{test[0].patient_id}_ae_{OASIS_DS}x.nii.gz")
+    ae_vol, caisr_vol = (read_image(f)[0] for f in
+                         (ae_file, combo_files["caisr"]))
+    merged = combine_volumes(ae_vol, caisr_vol, OASIS_DS)
+    out["combine_vs_combo"] = float(np.abs(merged - caisr_vol).max())
+    ref_file = os.path.join(results, "reference.nii.gz")
+    write_image(ref_file, vol)
+    quant = {}
+    for name, path in (("ae", ae_file), ("combo", combo_files["caisr"])):
+        quant[name] = scored(
+            f"eval_quantitative_{name}", lambda path=path:
+            compare_quantitative([ref_file], [path], OASIS_DS,
+                                 output_file=os.path.join(
+                                     results, f"quant_{name}.npz")))
+    log(f"eval combine_volumes: the merged AE + CAISR files vs the combo's "
+        f"{out['combine_vs_combo']:.3e} (limit {COMBO_ATOL}); "
+        f"compare_quantitative "
+        + json.dumps({k: {m: v[0] for m, v in r["aggregate"].items()}
+                      for k, r in quant.items()}))
+    if not out["combine_vs_combo"] <= COMBO_ATOL or not all(
+            np.isfinite(r["aggregate"]["ssim_synth"][0])
+            for r in quant.values()):
+        raise AssertionError("combine_volumes or compare_quantitative failed")
+
+    # 4. reconstruction-only scores, the rigid-transform table
+    recon_res = scored("eval_reconstruction", lambda:
+                       evaluate_model_reconstruction(primary, val + test))
+    rigid = scored("eval_rigid", lambda:
+                   test_interpolation_with_rigid_transformations(
+                       primary, test[0], OASIS_DS, angles=(0, 10)))
+    log(f"eval reconstruction: SSIM {recon_res['aggregate']['ssim'][0]:.4f} "
+        f"over {len(val + test)} volumes in "
+        f"{out['eval_reconstruction_s']:.3f} s; rigid table SSIM "
+        + json.dumps({a: r["ssim"][0] for a, r in rigid.items()})
+        + f" in {out['eval_rigid_s']:.3f} s")
+    if sorted(rigid) != [0, 10] or not np.isfinite(
+            recon_res["aggregate"]["ssim"][0]):
+        raise AssertionError("reconstruction scores or rigid table failed")
+
+    # 5. perceptual path length: 64 pairs on the card, 4 against the CPU
+    pool = np.ascontiguousarray(vol)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # the random-VGG LPIPS note
+        compute_ppl(primary, pool, num_pairs=4)   # resolves LPIPS once
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out["ppl_64"] = compute_ppl(primary, pool, num_pairs=64)
+        torch.cuda.synchronize()
+        out["ppl_64_s"] = time.perf_counter() - t0
+        got = compute_ppl(primary, pool, num_pairs=4, epsilon=1e-2)
+        want = compute_ppl(cpu, pool, num_pairs=4, epsilon=1e-2)
+    out["ppl_card_vs_cpu_rel"] = abs(got - want) / abs(want)
+    log(f"eval compute_ppl: 64 pairs of {pool.shape[1:]} = "
+        f"{out['ppl_64']:.6g} in {out['ppl_64_s']:.3f} s; 4 pairs at "
+        f"epsilon 1e-2 card {got:.6g} vs CPU {want:.6g}: rel "
+        f"{out['ppl_card_vs_cpu_rel']:.3e} (limit 1e-3) [{card}]")
+    if not (np.isfinite(out["ppl_64"])
+            and out["ppl_card_vs_cpu_rel"] <= 1e-3):
+        raise AssertionError("compute_ppl failed or differs on the card")
+    del cpu
+    _free_cuda()
+
+    # 6. SAX → LAX of one of phase 8's ACDC cines
+    cine_path = os.path.join(tmp, "data", "ACDC", "all_cardiac_phases",
+                             "patient001", "patient001_4d.nii.gz")
+    cine, spacing, _ = read_image(cine_path)
+    cine = np.asarray(cine, np.float32) / float(cine.max())
+    lax_shape, grid = _lax_grid(cine.shape[1:], ACDC_SPACING)
+    target = (cine.shape[0],) + lax_shape
+    resample_sax_to_lax(cine, target, grid, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lax = resample_sax_to_lax(cine, target, grid, device=dev)
+    out["sax_to_lax_s"] = time.perf_counter() - t0
+    lax_cpu = resample_sax_to_lax(cine, target, grid, device="cpu")
+    out["sax_to_lax_card_vs_cpu"] = float(np.abs(lax - lax_cpu).max())
+    log(f"eval resample_sax_to_lax {cine.shape} → {lax.shape} in "
+        f"{out['sax_to_lax_s']:.3f} s: card vs CPU max |Δ| "
+        f"{out['sax_to_lax_card_vs_cpu']:.3e} (limit 1e-6), mean "
+        f"{float(lax.mean()):.4f} [{card}]")
+    if not (out["sax_to_lax_card_vs_cpu"] <= 1e-6 and lax.max() > 0):
+        raise AssertionError("SAX → LAX resampling failed on the card")
+
+    # 7. MNISTRoto through the CLI, then the brain driver
+    roto = os.path.join(tmp, "roto")
+    t0 = time.perf_counter()
+    trainer = entry.train_brain(ROTO_ARGV + ["-o", tmp, "-id", "roto"])
+    out["roto_train_s"] = time.perf_counter() - t0
+    out["roto_steps"] = trainer.iters - 1
+    loss = np.load(os.path.join(roto, "losses_train.npz"))["loss_ae"]
+    brain = scored("eval_roto_create_brain_volumes", lambda:
+                   create_brain_volumes(trainer, "MNISTRoto", OASIS_DS,
+                                        width=int(trainer.args["width"]),
+                                        save_volumes=False))
+    log(f"eval train-brain -d MNISTRoto: {out['roto_steps']} steps in "
+        f"{out['roto_train_s']:.2f} s, loss_ae {loss.tolist()}; "
+        f"create_brain_volumes SSIM {brain['aggregate']['ssim'][0]:.4f} in "
+        f"{out['eval_roto_create_brain_volumes_s']:.3f} s [{card}]")
+    if not (np.isfinite(loss).all() and out["roto_steps"] >= 1
+            and np.isfinite(brain["aggregate"]["ssim"][0])):
+        raise AssertionError("MNISTRoto did not train or score")
+    del trainer, primary
+    _free_cuda()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"eval timings [{card}]: " + json.dumps(out))
+    return out
+
+
 def _kernel_kind(name: str) -> str:
     """Bucket of a device event by its kernel name."""
     low = name.lower()
@@ -2906,6 +3200,8 @@ def main() -> int:
         labeled = check_labeled(tmp, args.seed, card, dev, args.profile)
         # ---- 13. the alpha-probe families -----------------------------
         alpha = check_alpha(tmp, args.seed, card, dev, args.profile)
+        # ---- 14. evaluation: the combo, the paper's scoring, MNISTRoto -
+        evaluation = check_eval(tmp, args.seed, card, dev)
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)  # name and power limit, as nvidia-smi prints them
@@ -2928,14 +3224,16 @@ def main() -> int:
             "fitted_create_hr_images": options["fitted_launches"],
             **{f"families_{k}": v
                for k, v in families["launches"].items()},
-            **labeled["launches"], **alpha["launches"]},
+            **labeled["launches"], **alpha["launches"],
+            **evaluation["launches"]},
         "max_abs_err": max(kcheck["max_abs_err"],
                            disk["find_best_kernel_err"],
                            percept["percept_kernel_err"],
                            options["fitted_kernel_err"],
                            families["kernel_err"],
                            labeled["kernel_err"],
-                           alpha["kernel_err"]), "ok": True,
+                           alpha["kernel_err"],
+                           evaluation["kernel_err"]), "ok": True,
         "ms": kernel_ms, "ms_cold": kernel_cold_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "bound_share": bound_ms / kernel_ms,

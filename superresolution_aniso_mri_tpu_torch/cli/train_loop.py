@@ -33,9 +33,13 @@ Every batch carries each pair's slice-geometry features
 (``batch["alpha_features"]`` [B, 5], ``TripletSampler``'s), which the
 alpha families' probes read and the other families ignore.
 
-Not ported, and raising before anything is written: MNISTRoto's
-on-the-fly sampler (item 15), multi-host runs (item 11), and what
-``Trainer`` and ``get_datasets`` refuse.
+``-d MNISTRoto`` samples rotation triplets on the fly
+(``data.synthetic.RotoTripletSampler``: phantoms, or digits from
+``--mnist_path`` / ``$SR_MNIST_PATH``, with ``alpha_features`` on the
+rotation grid) instead of the MNIST3D stacks.
+
+Not ported, and raising before anything is written: multi-host runs
+(item 11) and what ``Trainer`` and ``get_datasets`` refuse.
 """
 from __future__ import annotations
 
@@ -51,6 +55,7 @@ from ..config.net_config import NetworkConfig, merge_args_architecture
 from ..data import AugmentConfig, TripletSampler, device_batch
 from ..data.datasets import get_datasets
 from ..data.device_cache import maybe_device_cache
+from ..data.synthetic import RotoTripletSampler
 from ..train import Trainer
 from ..utils.grids import generate_recon_grid, save_image_grid
 from ..utils.profiling import trace
@@ -113,18 +118,21 @@ def epoch_generator(seed: int, epoch: int) -> torch.Generator:
 
 
 def _refuse_unported(merged: Dict) -> None:
-    """Raise for the options of the JAX loop the port does not run, and
-    for ``--get_masks`` on a dataset without labels (JAX's sampler raises
-    the same ValueError once the experiment directory is written)."""
+    """Raise for the options of the JAX loop the port does not run, for
+    ``--get_masks`` on a dataset without labels and for MNISTRoto with a
+    multi-tap ``--train_latent_interp`` (JAX raises the same ValueErrors
+    once the experiment directory is written)."""
     if merged.get("get_masks") and merged["dataset"] != "ACDCLBL":
         raise ValueError(
             f"--get_masks requires labeled volumes (the loss masks are "
             f"derived from RV/MYO/LV segmentations); dataset "
             f"{merged['dataset']!r} carries no labels")
-    if merged["dataset"] == "MNISTRoto":
-        raise NotImplementedError(
-            "MNISTRoto: the on-the-fly rotation-triplet sampler is not "
-            "ported yet (ROADMAP item 15)")
+    tli = str(merged.get("train_latent_interp") or "linear")
+    if merged["dataset"] == "MNISTRoto" and tli in ("cubic", "lanczos3"):
+        raise ValueError(
+            f"--train_latent_interp {tli} is not supported for "
+            "MNISTRoto (the roto sampler generates rotation "
+            "triplets on the fly, not volume quintets/septets)")
     if int(merged.get("num_processes") or 1) > 1 \
             or merged.get("coordinator_address"):
         raise NotImplementedError(
@@ -177,14 +185,25 @@ def run_training(args_dict: Dict, verbose: bool = True) -> Trainer:
     latent_taps = {"cubic": 4, "lanczos3": 6}.get(tli, 2)
     seed = int(merged.get("seed", 0))
     use_masks = bool(merged.get("get_masks"))
-    sampler = TripletSampler(
-        train_vols, ds, merged.get("slice_selection", "adjacent_plus"),
-        pad_size=pad, seed=seed, use_masks=use_masks,
-        latent_taps=latent_taps)
-    val_sampler = TripletSampler(val_vols, ds, "adjacent_plus",
-                                 pad_size=pad, seed=seed + 1,
-                                 use_masks=use_masks,
-                                 latent_taps=latent_taps)
+    if merged["dataset"] == "MNISTRoto":
+        # on-the-fly rotation triplets (reference: MNIST/data_roto.py
+        # MakeRotatedTriple), not the pre-built MNIST3D stacks; a local
+        # MNIST file (mnist_path or $SR_MNIST_PATH) gives real digits
+        sampler = RotoTripletSampler(
+            size=int(merged["width"]), downsample_steps=ds, seed=seed,
+            mnist_path=merged.get("mnist_path"), mnist_split="train")
+        val_sampler = RotoTripletSampler(
+            size=int(merged["width"]), downsample_steps=ds, seed=seed + 1,
+            mnist_path=merged.get("mnist_path"), mnist_split="val")
+    else:
+        sampler = TripletSampler(
+            train_vols, ds, merged.get("slice_selection", "adjacent_plus"),
+            pad_size=pad, seed=seed, use_masks=use_masks,
+            latent_taps=latent_taps)
+        val_sampler = TripletSampler(val_vols, ds, "adjacent_plus",
+                                     pad_size=pad, seed=seed + 1,
+                                     use_masks=use_masks,
+                                     latent_taps=latent_taps)
     # device-resident slice cache: the padded stacks uploaded once, each
     # batch gathered on the device (the same batches as the host path)
     cache_mode = merged.get("device_data_cache", "auto")

@@ -771,6 +771,114 @@ def save_string_lists(mapping: Dict[str, Sequence], fname: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# model registries: a mapping of names to mappings of scalars
+# ---------------------------------------------------------------------------
+
+class _RegistryReader(_ListReader):
+    """A mapping of names to block (``name:`` then indented ``key:
+    value`` lines) or flow (``name: {key: value, ...}``) mappings of
+    scalars; a name whose value is a scalar reads as that scalar."""
+
+    takes = ("a model registry is a mapping of names to mappings of "
+             "scalars")
+
+    def value(self, key: str, flow: bool, indent: int = 0):
+        """The scalar after ``key:`` (None when nothing follows)."""
+        self.skip_spaces()
+        if self.peek() in ("", "\n", "#") or (flow and self.peek() in ",}"):
+            return None
+        if self.peek() in "[{":
+            raise self.error(f"key {key!r}: nested collections are not "
+                             f"supported")
+        start = self.i
+        value = self.item(key, flow=flow, indent=indent)
+        # a plain value's continuation line may not hold a mapping key
+        if not flow and re.search(r"\n[^\n]*:(?= |\n|$)",
+                                  self.s[start:self.i]):
+            raise self.error(f"key {key!r}: a mapping inside a value")
+        return value
+
+    def block_entry(self, name: str) -> Dict[str, Any]:
+        out: Dict[str, Any] = {}
+        indent = None
+        while True:
+            self.skip_blank_lines()
+            start = self.i
+            n = len(self.s[start:]) - len(self.s[start:].lstrip(" "))
+            if n == 0 or self.s[start + n:start + n + 1] in ("", "\n"):
+                return out
+            if indent is None:
+                indent = n
+            elif n != indent:
+                raise self.error(f"entry {name!r}: keys at different "
+                                 f"indents")
+            self.i = start + n
+            if self.s.startswith(("- ", "-\n"), self.i):
+                raise self.error(f"entry {name!r}: a list, not a mapping")
+            key = self.key()
+            if key in out:
+                raise self.error(f"duplicate key {key!r}")
+            out[key] = self.value(key, flow=False, indent=indent)
+            self.end_of_line()
+
+    def flow_entry(self, name: str) -> Dict[str, Any]:
+        self.i += 1
+        out: Dict[str, Any] = {}
+        while True:
+            self.skip_spaces(newlines=True)
+            if self.peek() == "}":
+                self.i += 1
+                return out
+            key = self.key()
+            if key in out:
+                raise self.error(f"duplicate key {key!r}")
+            out[key] = self.value(key, flow=True)
+            self.skip_spaces(newlines=True)
+            if self.peek() == ",":
+                self.i += 1
+            elif self.peek() != "}":
+                raise self.error(f"entry {name!r}: expected ',' or '}}'")
+
+
+def parse_model_registry(text: str, where: str = "model registry"
+                         ) -> Dict[str, Any]:
+    """Read a model registry (``evaluate/model_registry.py``) as
+    ``yaml.safe_load`` reads it: names (in file order) → mappings of
+    scalars, block or flow style; an empty file is ``{}``. Nested
+    collections, sequences and other YAML raise ``ValueError`` naming
+    ``where``."""
+    r = _RegistryReader(text, where)
+    r.skip_blank_lines()
+    out: Dict[str, Any] = {}
+    if r.s[r.i:].rstrip() in ("{}", "null", "~", ""):
+        return out
+    while True:
+        r.skip_blank_lines()
+        if r.i >= len(r.s):
+            return out
+        if r.peek() in (" ", "\t", "-", "{", "["):
+            raise r.error("expected a name at the start of the line")
+        name = r.key()
+        if name in out:
+            raise r.error(f"duplicate key {name!r}")
+        if r.peek() == "{":
+            out[name] = r.flow_entry(name)
+            r.end_of_line()
+        elif r.peek() in ("", "\n", "#"):
+            r.end_of_line()
+            entry = r.block_entry(name)
+            out[name] = entry if entry else None
+        else:
+            out[name] = r.value(name, flow=False)
+            r.end_of_line()
+
+
+def load_model_registry(fname: str) -> Dict[str, Any]:
+    with open(fname, "r") as fp:
+        return parse_model_registry(fp.read(), fname)
+
+
+# ---------------------------------------------------------------------------
 # experiment settings
 # ---------------------------------------------------------------------------
 

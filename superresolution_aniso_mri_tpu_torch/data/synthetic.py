@@ -6,8 +6,9 @@ A numpy/scipy copy of the MNIST3D part of
 ``_fit_digit``): stacks of progressively rotated 2-D structures (the
 reference's datasets/MNIST/data.py:11-45 construction), from procedural
 phantoms or from a local MNIST file. The same seed gives bitwise the
-same volumes as the JAX package. The on-the-fly rotation sampler of
-MNISTRoto (``RotoTripletSampler``) is not ported (ROADMAP item 15).
+same volumes as the JAX package. MNISTRoto's on-the-fly rotation
+sampler (``RotoTripletSampler``, JAX ``:377-472``) is copied too: the
+same seed gives bitwise the same triplets and ``alpha_features``.
 """
 from __future__ import annotations
 
@@ -142,3 +143,99 @@ def _fit_digit(img: np.ndarray, size: int) -> np.ndarray:
     y0, x0 = (size - h) // 2, (size - w) // 2
     out[y0:y0 + h, x0:x0 + w] = img
     return np.clip(out, 0.0, 1.0)
+
+
+class RotoTripletSampler:
+    """On-the-fly rotation triplets (the MNISTRoto backend).
+
+    Reference: datasets/MNIST/data_roto.py:19-126 MakeRotatedTriple —
+    instead of pre-built volumes, each sample rotates a base image by a
+    random start angle θ and returns (θ, θ+Δ, θ+αΔ) rotations with
+    grad_step Δ=5° per virtual slice and α drawn from the gap. Plugs into
+    the same batch contract as TripletSampler.
+    """
+
+    def __init__(self, num_images: int = 16, size: int = 32,
+                 grad_step: float = 5.0, downsample_steps: int = 2,
+                 seed: int = 0, mnist_path: str | None = None,
+                 mnist_split: str = "train"):
+        rs = np.random.RandomState(seed)
+        mnist_path = mnist_path or os.environ.get("SR_MNIST_PATH")
+        if mnist_path:
+            digits = load_mnist_images(mnist_path)
+            # disjoint train/val pools, same convention as
+            # make_toy_dataset — without this the val sampler would draw
+            # trained digits and best-val selection would be optimistic
+            if len(digits) < 2:
+                raise ValueError(
+                    f"MNIST file {mnist_path!r} holds {len(digits)} "
+                    f"image(s) — at least 2 are needed for disjoint "
+                    f"train/val pools")
+            half = len(digits) // 2
+            digits = (digits[:half] if mnist_split == "train"
+                      else digits[half:])
+            picks = rs.choice(len(digits), size=min(num_images, len(digits)),
+                              replace=False)
+            self.images = [_fit_digit(digits[j], size) for j in picks]
+        else:
+            self.images = [_phantom2d(size, rs) for _ in range(num_images)]
+        self.grad_step = float(grad_step)
+        self.downsample_steps = int(downsample_steps)
+        self.rs = np.random.RandomState(seed + 1)
+        self.size = size
+
+    def __len__(self) -> int:
+        return len(self.images) * 36  # nominal epoch length
+
+    def _rotate(self, img: np.ndarray, angle: float) -> np.ndarray:
+        out = scipy.ndimage.rotate(img, angle, reshape=False, order=1,
+                                   mode="constant", cval=0.0)
+        return np.clip(out, 0.0, 1.0).astype(np.float32)
+
+    def sample_item(self, idx: int | None = None):
+        """``idx`` selects the base image deterministically (the
+        TripletSampler-like contract callers rely on for reproducible
+        preview rows); ``None`` draws a random one. The rotation/offset
+        stream stays stochastic either way."""
+        img = (self.images[self.rs.randint(len(self.images))]
+               if idx is None else self.images[idx % len(self.images)])
+        gap = self.grad_step * self.downsample_steps
+        theta = float(self.rs.uniform(0.0, 360.0))
+        # in-between position strictly inside the gap (virtual slice grid)
+        k = int(self.rs.randint(1, self.downsample_steps)) \
+            if self.downsample_steps > 1 else 0.5
+        frac = k / self.downsample_steps
+        s_from = self._rotate(img, theta)
+        s_to = self._rotate(img, theta + gap)
+        s_between = self._rotate(img, theta + frac * gap)
+        a_from = 1.0 - frac
+        a_to = frac
+        triplet = np.stack([s_from, s_to, s_between], axis=-1)
+        # real slice-geometry features for the alpha probes, on the
+        # virtual rotation grid: one "slice" per grad_step degrees, so a
+        # full turn has n = 360/grad_step positions and z-spacing is the
+        # angular step — the rotational analog of TripletSampler's
+        # [(s_from+1)/n, (s_to+1)/n, (frame+1)/n_frames, spacing, n]
+        # (reference: base_alpha_trainer.py:178-189 create_add_features;
+        # the reference's MNISTRoto batches carry mismatched key names
+        # and crash its alpha trainers — this path works instead)
+        n_virtual = 360.0 / self.grad_step
+        vid_from = theta / self.grad_step
+        feats = np.array([(vid_from + 1.0) / n_virtual,
+                          (vid_from + self.downsample_steps + 1.0)
+                          / n_virtual,
+                          1.0, self.grad_step, n_virtual], np.float32)
+        return {"triplet": triplet.astype(np.float32),
+                "alpha_from": np.float32(a_from),
+                "alpha_to": np.float32(a_to),
+                "is_inbetween": np.float32(1.0),
+                "alpha_features": feats,
+                "patient_index": np.int32(0)}
+
+    def sample_batch(self, batch_size: int):
+        items = [self.sample_item() for _ in range(batch_size)]
+        return {k: np.stack([it[k] for it in items]) for k in items[0]}
+
+    def epoch_batches(self, batch_size: int):
+        for _ in range(max(1, len(self) // batch_size)):
+            yield self.sample_batch(batch_size)

@@ -11,7 +11,8 @@ from .patches import (assemble_patches, extract_patches,
 from .serving import ServingModel
 from .super_volume import (apply_blur_filter, create_simple_interpolation,
                            create_super_volume, create_super_volumes,
-                           interleave_volume, make_batched_synthesizer,
+                           interleave_volume, latent_space_interp,
+                           make_batched_synthesizer,
                            make_synthesis_core, make_volume_synthesizer,
                            rescale_volume, simple_interpolation)
 
@@ -19,7 +20,8 @@ __all__ = ["ServingModel", "apply_blur_filter", "assemble_patches",
            "create_features", "create_simple_interpolation",
            "create_super_volume", "create_super_volumes", "extract_patches",
            "fit_latent_taps", "get_alpha_probe_features",
-           "interpolate_in_patches", "latent_space_interp_pred_alpha",
+           "interpolate_in_patches", "latent_space_interp",
+           "latent_space_interp_pred_alpha",
            "load_latent_taps", "reconstruct_in_patches",
            "synthesize_cardiac_features",
            "resolve_latent_interp", "save_latent_taps",

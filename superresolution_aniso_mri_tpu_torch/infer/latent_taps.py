@@ -164,14 +164,15 @@ def _gather_pairs(trainer, volumes, downsample_steps: int,
     else its own removed slices. Pairs are stacked, so ragged in-plane
     shapes keep the dominant one and skip the rest with a warning."""
     from .super_volume import (kept_slice_grid, latent_encoder,
-                               model_label_semantics)
+                               model_label_semantics, synthesis_model)
 
     if model_label_semantics(trainer)[0]:
         raise NotImplementedError(
             "fitted latent taps are wired for single-channel encoders; "
             "the multichannel (image+label input) family would need "
             "label-channel supervision in the fitting set")
-    model = trainer._ae_model()
+    # the AE+CAISR combo fits through the SR model, which synthesizes
+    model = synthesis_model(trainer)
     dev = next(model.parameters()).device
     ds = int(downsample_steps)
     div = 2 ** model.config.scales
@@ -234,8 +235,9 @@ def fit_latent_taps(trainer, volumes, downsample_steps: int, *,
                     holdout_frac: float = 0.2,
                     verbose: bool = False) -> Dict:
     """Fit the [A, n_taps] tap-weight table through the frozen decoder
-    of ``trainer`` (a Trainer or ``ServingModel``) on the device its
-    model lives on.
+    of ``trainer`` (a Trainer or ``ServingModel``; its SR model when one
+    is loaded, as that one synthesizes) on the device its model lives
+    on.
 
     Starts at the lanczos3 rows and runs Adam (optax's, the port's
     ``train/state.py`` optimizer) on the mean squared error of the
@@ -250,6 +252,7 @@ def fit_latent_taps(trainer, volumes, downsample_steps: int, *,
     {'alphas', 'weights', 'offsets', 'loss_init', 'loss_final' (holdout
     MSEs), 'n_pairs', 'n_holdout'}; save with ``save_latent_taps``."""
     from ..train.state import Optimizer
+    from .super_volume import synthesis_model
 
     ds = int(downsample_steps)
     if ds < 2:
@@ -278,7 +281,7 @@ def fit_latent_taps(trainer, volumes, downsample_steps: int, *,
 
     taps, targets = take(taps_all, train_idx), take(tgt_all, train_idx)
     taps_ho, tgt_ho = take(taps_all, hold_idx), take(tgt_all, hold_idx)
-    model = trainer._ae_model()
+    model = synthesis_model(trainer)
 
     def pair_losses(w, tap_b, tgt_b):
         """[B] mean squared errors of the pairs' synthesized slices."""

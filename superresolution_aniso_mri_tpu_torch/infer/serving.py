@@ -2,8 +2,9 @@
 
 Stand-in for an eval-mode ``Trainer`` of the JAX package
 (``train/trainer.py:525-540``): ``model_config``, ``_ae_model()``,
-``_ae_params()`` and ``params_sr`` (always None here: the AE+CAISR combo
-is not ported yet), plus the device the model lives on.
+``_ae_params()`` and ``params_sr`` (None here: the AE+CAISR combo's SR
+model is loaded by ``Trainer.load_caisr``), plus the device the model
+lives on.
 """
 from __future__ import annotations
 

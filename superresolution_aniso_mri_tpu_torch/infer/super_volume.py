@@ -30,9 +30,16 @@ planes through the same interleave; the class ids are never clamped and
 come back as ``upsampled_labels``, rounded to the input labels' dtype
 (int32 without input labels).
 
-Not ported in this slice (each raises): ``num_devices > 1``, the
-AE+CAISR combo (``trainer.params_sr``) and the packed decoder
-(``packed=True``).
+The AE+CAISR combo (``trainer.params_sr``, loaded by
+``Trainer.load_caisr``): the SR model synthesizes the in-between slices
+through its own synthesis core (cached on the trainer under the SR
+module, beside the autoencoder's), and the primary model reconstructs
+the kept slices through ``trainer.predict`` in chunks of the decode
+budget, unless ``use_original``. A MultiChannelAE combo keeps the SR
+model's decoded labels and the primary's ``argmax(soft_probs)``.
+
+Not ported in this slice (each raises): ``num_devices > 1`` and the
+packed decoder (``packed=True``).
 """
 from __future__ import annotations
 
@@ -286,15 +293,35 @@ def make_synthesis_core(model, decode_batch: Optional[int] = None,
     return core
 
 
-def _get_core(trainer, decode_batch: Optional[int], latent_interp: str):
-    """The synthesis core for ``trainer``'s model, cached on the trainer
-    per (decode_batch, latent_interp table version)."""
-    key = (decode_batch, latent_interp_cache_token(latent_interp))
+def _get_core(trainer, decode_batch: Optional[int], latent_interp: str,
+              model=None):
+    """The synthesis core for ``model`` (default ``trainer``'s
+    autoencoder; the combo passes its SR model), cached on the trainer
+    per (model, decode_batch, latent_interp table version): the key
+    holds the module itself, so an SR model never gets the autoencoder's
+    core, nor a later SR model an earlier one's."""
+    model = trainer._ae_model() if model is None else model
+    key = (model, decode_batch, latent_interp_cache_token(latent_interp))
     cache = trainer.synth_cache
     if key not in cache:
-        cache[key] = make_synthesis_core(trainer._ae_model(), decode_batch,
+        cache[key] = make_synthesis_core(model, decode_batch,
                                          latent_interp=latent_interp)
     return cache[key]
+
+
+def synthesis_model(trainer):
+    """The model that synthesizes the in-between slices: the SR model
+    when one is loaded (``params_sr``), else the autoencoder."""
+    sr = getattr(trainer, "params_sr", None)
+    return trainer._ae_model() if sr is None else sr
+
+
+def latent_space_interp(trainer, alpha: float, img1, img2):
+    """``decode(alpha * enc(img1) + (1 - alpha) * enc(img2))`` of NCHW
+    slices, through the SR model when one is loaded."""
+    z1 = trainer.encode(img1, use_sr_model=True)
+    z2 = trainer.encode(img2, use_sr_model=True)
+    return trainer.decode(alpha * z1 + (1.0 - alpha) * z2, use_sr_model=True)
 
 
 def make_volume_synthesizer(model, decode_batch: Optional[int] = None,
@@ -393,15 +420,57 @@ def _tta_variants(mode: str):
     return variants
 
 
+def _predict_chunked(trainer, kept: torch.Tensor, decode_batch):
+    """``trainer.predict`` in ``decode_batch``-sized chunks (the combo's
+    reconstruction pass keeps the synthesis core's memory bound)."""
+    n = kept.shape[0]
+    if decode_batch is None or n <= int(decode_batch):
+        return trainer.predict(kept)
+    c = int(decode_batch)
+    outs = [trainer.predict(kept[i:i + c]) for i in range(0, n, c)]
+    if isinstance(outs[0], dict):
+        return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+    return torch.cat(outs)
+
+
+def _combo_volume(trainer, kept: torch.Tensor, alphas: torch.Tensor,
+                  k_true: int, use_original: bool, decode_batch,
+                  latent_interp: str, decodes_labels: bool) -> torch.Tensor:
+    """The AE+CAISR combo's interleaved [S', P, H, W] volume (unclamped;
+    ``_finalize_volume_outputs`` clamps the image plane): the SR model
+    synthesizes, the primary reconstructs (or the kept slices stay)."""
+    core = _get_core(trainer, decode_batch, latent_interp, trainer.params_sr)
+    interp = core(kept, alphas, use_original=True)["interp"]
+    n_ch = 2 if (decodes_labels and interp.shape[-3] >= 2) else 1
+    interp = interp[:k_true - 1, :, :n_ch]
+    kept_true = kept[:k_true]
+    if use_original:
+        recon = kept_true[:, :n_ch]
+    else:
+        pred = _predict_chunked(trainer, kept_true, decode_batch)
+        if isinstance(pred, dict):
+            recon = pred["image"][:, :1]
+            if n_ch == 2:
+                ids = pred["soft_probs"].argmax(dim=1, keepdim=True)
+                recon = torch.cat([recon, ids.to(recon.dtype)], dim=1)
+        else:
+            recon = pred[:, :n_ch]
+    dtype = torch.promote_types(recon.dtype, interp.dtype)
+    return interleave_volume(recon.to(dtype), interp.to(dtype))
+
+
 def _check_serving_options(trainer, num_devices, readback_dtype) -> None:
     if num_devices and int(num_devices) > 1:
         raise NotImplementedError(
             "num_devices > 1: multi-GPU serving is "
             + _NOT_PORTED.format(item="S5"))
-    if getattr(trainer, "params_sr", None) is not None:
-        raise NotImplementedError(
-            "trainer.params_sr: the AE+CAISR combo is "
-            + _NOT_PORTED.format(item="S3"))
+    sr = getattr(trainer, "params_sr", None)
+    if sr is not None and not isinstance(sr, torch.nn.Module):
+        raise TypeError(
+            f"trainer.params_sr must be the SR model that "
+            f"Trainer.load_caisr loads (an nn.Module), got "
+            f"{type(sr).__name__}: the port has no (params, batch_stats) "
+            f"pair")
     if readback_dtype not in READBACK_DTYPES:
         raise ValueError(f"readback_dtype must be one of {READBACK_DTYPES}, "
                          f"got {readback_dtype!r}")
@@ -508,15 +577,19 @@ def create_super_volume(trainer, images, alpha_range=None,
         decode_batch = _auto_decode_batch(k_pad + (k_pad - 1) * a_n,
                                           kept.shape[2], kept.shape[3], depth)
 
-    core = _get_core(trainer, decode_batch, latent_interp)
     dev = trainer.device
-    out = core(torch.from_numpy(np.ascontiguousarray(kept)).to(dev),
-               torch.from_numpy(alpha_range).to(dev),
-               use_original=use_original, interleave=True)
-    # valid prefix of the padded interleaved volume: the image plane,
-    # and the decoded labels' plane of a MultiChannelAE
-    planes = 2 if decodes_labels else 1
-    vol = out["volume"][:(k_true - 1) * (a_n + 1) + 1, :planes]
+    kept_t = torch.from_numpy(np.ascontiguousarray(kept)).to(dev)
+    alphas_t = torch.from_numpy(alpha_range).to(dev)
+    if getattr(trainer, "params_sr", None) is not None:
+        vol = _combo_volume(trainer, kept_t, alphas_t, k_true, use_original,
+                            decode_batch, latent_interp, decodes_labels)
+    else:
+        out = _get_core(trainer, decode_batch, latent_interp)(
+            kept_t, alphas_t, use_original=use_original, interleave=True)
+        # valid prefix of the padded interleaved volume: the image plane,
+        # and the decoded labels' plane of a MultiChannelAE
+        planes = 2 if decodes_labels else 1
+        vol = out["volume"][:(k_true - 1) * (a_n + 1) + 1, :planes]
     return _finalize_volume_outputs(
         _readback(vol, readback_dtype), orig_images=orig_images,
         labels=labels, alpha_range=alpha_range,
@@ -602,7 +675,8 @@ def create_super_volumes(trainer, images_list: Sequence,
     ``create_super_volume`` call per volume, but same-shaped volumes run
     as one flat [B*K] batch per shape group (at most ``max_b`` volumes a
     call, from ``_batch_volume_cap``). TTA and lone volumes take the
-    per-volume path. Returns per-volume result dicts in input order."""
+    per-volume path, and so does the AE+CAISR combo. Returns per-volume
+    result dicts in input order."""
     _check_serving_options(trainer, num_devices, readback_dtype)
     images_list = list(images_list)
     if labels_list is None:
@@ -619,7 +693,8 @@ def create_super_volumes(trainer, images_list: Sequence,
                   num_devices=num_devices, tta=tta,
                   latent_interp=latent_interp,
                   readback_dtype=readback_dtype)
-    if tta or len(images_list) <= 1:
+    if (tta or getattr(trainer, "params_sr", None) is not None
+            or len(images_list) <= 1):
         return [create_super_volume(trainer, img, labels=lbl, **kwargs)
                 for img, lbl in zip(images_list, labels_list)]
 

@@ -27,7 +27,14 @@ The perceptual losses take frozen weights that the trainer resolves
 as JAX does (``lpips_params``: VGG LPIPS for ``perceptual``, the encoder
 artifact for ``perceptual_enc``) and records their mode in
 ``args["lpips_mode"]``, hence in ``settings.yaml``; they are not among
-``state.params()``, so the optimizer never sees them.
+``state.params()``, so the optimizer never sees them. An ``eval_mode``
+trainer resolves none of them (it builds no step) and keeps the
+``lpips_mode`` of its settings; JAX's resolves them in both modes.
+
+``load_caisr`` loads a second model for the AE+CAISR combo:
+``params_sr`` is an eval-mode autoencoder of the primary's class and
+config, and ``encode`` / ``decode`` / ``predict(use_sr_model=True)`` and
+the synthesis of ``infer.create_super_volume`` go through it.
 
 ``train_many`` runs N steps through ``make_multi_train_step`` (a CUDA
 graph replayed per step on the card). The step's random draws (ACAI's
@@ -44,6 +51,7 @@ not matter.
 """
 from __future__ import annotations
 
+import copy
 import os
 import warnings
 from collections import defaultdict
@@ -62,7 +70,8 @@ from ..models.convert import torch_to_flax
 from ..ops.lpips import get_lpips_params, lpips_weights_info
 from ..ops.perceptual import get_enc_perceptual_params
 from .checkpoint import load_checkpoint, load_checkpoint_raw, save_checkpoint
-from .import_torch import is_torch_checkpoint
+from .import_torch import (is_torch_checkpoint, load_reference_pickle,
+                           reference_state_to_port)
 from .state import PartitionOptimizer, create_train_state, make_optimizer
 from .steps import (FAMILY_OF_MODEL, LossConfig, make_eval_step,
                     make_multi_train_step, make_train_step)
@@ -224,16 +233,20 @@ class Trainer:
         self.loss_config = loss_config_from_args(self.args)
         self.family = self.loss_config.family
         lc = self.loss_config
-        needs_lpips = "perceptual" in (lc.recon_loss, lc.image_mix_loss_func)
-        if "perceptual_enc" in (lc.recon_loss, lc.image_mix_loss_func):
-            self.lpips_params = get_enc_perceptual_params(device=self.device)
-            self.args["lpips_mode"] = "encoder_backbone"
-        else:
-            self.lpips_params = (get_lpips_params(device=self.device)
-                                 if needs_lpips else None)
-        if needs_lpips:
-            # which LPIPS weights engaged, so settings.yaml carries it
-            self.args["lpips_mode"] = lpips_weights_info()["mode"]
+        # the loss's frozen weights: an eval-mode trainer builds no step,
+        # so it resolves none and keeps the experiment's lpips_mode
+        self.lpips_params = None
+        losses = (lc.recon_loss, lc.image_mix_loss_func)
+        if not eval_mode:
+            if "perceptual_enc" in losses:
+                self.lpips_params = get_enc_perceptual_params(
+                    device=self.device)
+                self.args["lpips_mode"] = "encoder_backbone"
+            elif "perceptual" in losses:
+                self.lpips_params = get_lpips_params(device=self.device)
+            if "perceptual" in losses:
+                # which LPIPS weights engaged, so settings.yaml carries it
+                self.args["lpips_mode"] = lpips_weights_info()["mode"]
         self.args["ae_class"] = routed_ae_class(self.args)
         if not eval_mode:
             _check_family_model(self.family, self.args["ae_class"])
@@ -420,11 +433,43 @@ class Trainer:
         ae = self._ae_model()
         return dict(ae.named_parameters()), dict(ae.named_buffers())
 
+    def load_caisr(self, fname: str) -> None:
+        """Load a second model's weights for SR synthesis (the AE+CAISR
+        combo) from ``fname``: an ``SRTPU1`` checkpoint of either
+        package (a family checkpoint's ``{"ae", ...}`` tree gives its
+        ``ae``) or a reference torch pickle, whose layers without an
+        importer keep the primary's values, as in JAX. ``params_sr``
+        becomes an eval-mode copy of the autoencoder on the trainer's
+        device; the synthesis cores built for an earlier SR model are
+        dropped."""
+        sr = copy.deepcopy(self._ae_model()).eval().requires_grad_(False)
+        if is_torch_checkpoint(fname):
+            self._warn_torch_stem_geometry(fname)
+            raw = load_reference_pickle(fname)
+            sd = {**sr.state_dict(),
+                  **reference_state_to_port(raw["model_dict_ae"], sr)}
+        else:
+            raw = load_checkpoint_raw(fname)
+            sd = flax_to_torch(raw["model_dict_ae"],
+                               raw.get("batch_stats", {}),
+                               self.model_config, sr, device=self.device)
+        sr.load_state_dict(sd)
+        old = self.params_sr
+        if old is not None:
+            for key in [k for k in self.synth_cache if k[0] is old]:
+                del self.synth_cache[key]
+        self.params_sr = sr
+
     def _serving_ae(self, use_sr_model: bool) -> torch.nn.Module:
+        """The SR model when ``use_sr_model`` and one is loaded, else the
+        autoencoder (JAX's ``_sr_params``)."""
         if use_sr_model and self.params_sr is not None:
-            raise NotImplementedError(
-                "the AE+CAISR combo (params_sr) is not ported yet "
-                "(ROADMAP item S3)")
+            if not isinstance(self.params_sr, torch.nn.Module):
+                raise TypeError(
+                    f"params_sr must be the SR model that load_caisr "
+                    f"loads (an nn.Module), got "
+                    f"{type(self.params_sr).__name__}")
+            return self.params_sr
         return self._ae_model()
 
     @torch.no_grad()
@@ -481,13 +526,7 @@ class Trainer:
         reference torch pickle) into the state; an EMA track resumes from
         ``ema.models`` beside it, else from the loaded weights."""
         self.state, self.epoch = load_checkpoint(fname, self.state)
-        if (is_torch_checkpoint(fname)
-                and not self.model_config.stem_pad_parity):
-            warnings.warn(
-                f"{fname}: reference torch checkpoint loaded into the "
-                f"shape-exact stem — set stem_pad_parity: true (or "
-                f"--stem_pad_parity) to evaluate it through the padded "
-                f"stem geometry it was trained with")
+        self._warn_torch_stem_geometry(fname)
         if self.ema_params is not None:
             ema_path = os.path.join(os.path.dirname(fname), "ema.models")
             source = self.state.params()
@@ -500,6 +539,15 @@ class Trainer:
                 for k, v in self.ema_params.items():
                     v.copy_(source[k])
         self._restore_history()
+
+    def _warn_torch_stem_geometry(self, fname: str) -> None:
+        if (is_torch_checkpoint(fname)
+                and not self.model_config.stem_pad_parity):
+            warnings.warn(
+                f"{fname}: reference torch checkpoint loaded into the "
+                f"shape-exact stem — set stem_pad_parity: true (or "
+                f"--stem_pad_parity) to evaluate it through the padded "
+                f"stem geometry it was trained with")
 
     def _restore_history(self) -> None:
         """Reload the loss archives (the first ``epoch`` entries) and the

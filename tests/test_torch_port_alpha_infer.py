@@ -222,16 +222,34 @@ def _warns(colors):
 
 
 def test_patches_with_an_sr_model_raise():
-    """``use_sr_model`` falls back to the autoencoder without an SR
-    model; with ``params_sr`` set the port raises naming item S3."""
+    """``use_sr_model`` routes through the SR model when one is loaded:
+    the interpolation equals JAX's with its ``params_sr`` and differs
+    from the autoencoder's; a ``params_sr`` that is not a module (JAX's
+    (params, batch_stats) pair) raises a TypeError."""
+    import copy
+
+    from superresolution_aniso_mri_tpu.infer import patches as jp
     from superresolution_aniso_mri_tpu_torch.infer import (
         interpolate_in_patches)
 
-    _, pt = _plain_pair()
-    img = np.random.RandomState(4).rand(16, 16).astype(np.float32)
+    jt, pt = _plain_pair()
+    img = np.random.RandomState(4).rand(2, 16, 16).astype(np.float32)
+    ae_only = interpolate_in_patches(pt, img[0], img[1], 0.5, 8)
+    sr_params, sr_stats = numpy_tree(jt._ae_model(), 9,
+                                     jnp.zeros((1, 16, 16, 1)))
+    jt.params_sr = (sr_params, sr_stats)
+    sr = copy.deepcopy(pt._ae_model())
+    sr.load_state_dict(flax_to_torch(sr_params, sr_stats, pt.model_config,
+                                     sr))
+    pt.params_sr = sr
+    with _highest():
+        want = jp.interpolate_in_patches(jt, img[0], img[1], 0.5, 8)
+    got = interpolate_in_patches(pt, img[0], img[1], 0.5, 8)
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-5)
+    assert np.abs(got - ae_only).max() > 1e-3
     pt.params_sr = object()
-    with pytest.raises(NotImplementedError, match="S3"):
-        interpolate_in_patches(pt, img, img, 0.5, 8)
+    with pytest.raises(TypeError, match="load_caisr"):
+        interpolate_in_patches(pt, img[0], img[1], 0.5, 8)
 
 
 # ---------------------------------------------------------------------------

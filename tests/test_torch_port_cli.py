@@ -341,16 +341,18 @@ def test_port_train_resumes_and_saves_on_interrupt(dirs, tmp_path,
 
 @pytest.mark.parametrize("extra, item", [
     (["--get_masks"], "labeled volumes"),
-    (["-d", "MNISTRoto"], "item 15"),
+    (["-d", "MNISTRoto", "--train_latent_interp", "lanczos3"],
+     "not supported for MNISTRoto"),
     (["--num_devices", "2"], "item 11"),
     (["--num_processes", "2"], "item 11"),
 ])
 def test_train_refuses_what_is_not_ported_before_writing(tmp_path, extra,
                                                          item):
     """Unported options raise NotImplementedError naming their ROADMAP
-    item; ``--get_masks`` on a dataset without labels raises the
-    ValueError JAX's sampler raises, here before anything is written."""
-    error = ValueError if item == "labeled volumes" else NotImplementedError
+    item; ``--get_masks`` on a dataset without labels and MNISTRoto with
+    a multi-tap ``--train_latent_interp`` raise the ValueErrors JAX
+    raises, here before anything is written."""
+    error = NotImplementedError if "item" in item else ValueError
     with pytest.raises(error, match=item):
         entry.train_brain(TINY + ["-o", str(tmp_path), "-id", "x",
                                   "--device", "cpu"] + extra)

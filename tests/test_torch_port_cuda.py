@@ -79,6 +79,10 @@ def _extreme_pair(shape, seed=0):
     pytest.param((3, 11, 11), "smooth", id="win11_sized"),
     pytest.param((70000, 8, 8), "smooth", id="70000_slices"),
     pytest.param((7, 40, 48), "extreme", id="extreme_values"),
+    # chip_smoke.py phase 14: an OASIS volume's 176 reconstructed slices,
+    # a MNISTRoto validation volume at the recipe's width
+    pytest.param((176, 208, 176), "smooth", id="reconstruction"),
+    pytest.param((33, 64, 64), "flat", id="mnistroto"),
 ])
 def test_ssim_kernel_matches_plain_version(cuda, shape, data):
     """atol 1e-5, as chip_smoke.py: the kernel repeats the plain
@@ -738,6 +742,85 @@ def test_alpha_mix_spatial_on_card_matches_cpu(cuda):
         want = alpha_mix(a, z1, z3, n, 6, scheme)
         got = alpha_mix(a.cuda(), z1.cuda(), z3.cuda(), n, 6, scheme)
         assert float((got.cpu() - want).abs().max()) <= 1e-6, scheme
+
+
+EVAL_ARGS = dict(model="ae_combined", dataset="OASIS", width=32,
+                 latent_width=8, depth=4, latent=6, use_batchnorm=True,
+                 use_sigmoid=True, lr=1e-4, seed=0)
+
+
+def _eval_trainer(device, seed=0):
+    """An eval-mode trainer of ``EVAL_ARGS`` with seeded weights whose
+    conv kernels are doubled, so that its decoder is not nearly constant
+    (a seeded network's output varies by ~1e-4 over a volume)."""
+    from superresolution_aniso_mri_tpu_torch.train import Trainer
+
+    t = Trainer(dict(EVAL_ARGS, seed=seed), eval_mode=True, device=device)
+    with torch.no_grad():
+        for p in t.model.parameters():
+            if p.ndim == 4:
+                p.mul_(2)
+    return t
+
+
+def _eval_trainers(cuda):
+    """``_eval_trainer`` on the card and on the CPU (the same weights)."""
+    return _eval_trainer(cuda), _eval_trainer("cpu")
+
+
+def test_combo_on_card_matches_cpu(cuda, tmp_path):
+    """The AE+CAISR combo (``load_caisr`` of another seed's checkpoint)
+    served on the card against the CPU (float32, TF32 off: atol 1e-4);
+    its synthesized slices differ from the autoencoder's own, its kept
+    slices are the autoencoder's reconstructions."""
+    from superresolution_aniso_mri_tpu_torch.infer import create_super_volume
+
+    path = str(tmp_path / "sr.models")
+    _eval_trainer("cpu", seed=5).save_models(path, 1)
+    card, cpu = _eval_trainers(cuda)
+    img = _pair((19, 40, 48), seed=3)[0]
+    kw = dict(downsample_steps=3, alpha_range=[1 / 3, 2 / 3],
+              generate_inbetween_slices=True)
+    ae_only = create_super_volume(card, img, **kw)["upsampled_image"]
+    for t in (card, cpu):
+        t.load_caisr(path)
+    got = create_super_volume(card, img, **kw)["upsampled_image"]
+    want = create_super_volume(cpu, img, **kw)["upsampled_image"]
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    synth = np.arange(got.shape[0]) % 3 != 0
+    assert np.abs(got[synth] - ae_only[synth]).max() > 1e-3
+    np.testing.assert_allclose(got[~synth], ae_only[~synth], atol=1e-6)
+
+
+def test_grid_sample_3d_on_card_matches_cpu(cuda):
+    """JAX's trilinear gather as torch ops on the card against the CPU,
+    coordinates off the volume and at exactly ±1 included (atol 1e-6)."""
+    from superresolution_aniso_mri_tpu_torch.evaluate import grid_sample_3d
+
+    rng = np.random.RandomState(4)
+    vol = torch.from_numpy(rng.rand(10, 216, 256).astype(np.float32))
+    grid = rng.uniform(-1.1, 1.1, (3, 64, 96, 3)).astype(np.float32)
+    grid[0, 0] = 1.0
+    grid[0, 1] = -1.0
+    grid = torch.from_numpy(grid)
+    got = grid_sample_3d(vol.to(cuda), grid.to(cuda)).cpu()
+    want = grid_sample_3d(vol, grid)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
+
+
+def test_compute_ppl_on_card_matches_cpu(cuda):
+    """PPL of 4 pairs on the card against the CPU at ``epsilon`` 1e-2
+    (rel 1e-3: the VGG stack's float32 sums run in other orders on cuDNN
+    and on the CPU; at the default 1e-4 the path length is mostly the
+    float32 rounding of two near-equal decodes)."""
+    from superresolution_aniso_mri_tpu_torch.evaluate import compute_ppl
+
+    card, cpu = _eval_trainers(cuda)
+    pool = np.random.RandomState(3).rand(6, 48, 40).astype(np.float32)
+    got = compute_ppl(card, pool, num_pairs=4, epsilon=1e-2, seed=1)
+    want = compute_ppl(cpu, pool, num_pairs=4, epsilon=1e-2, seed=1)
+    assert got == pytest.approx(want, rel=1e-3)
+    assert got > 0.01
 
 
 def test_failed_capture_raises_without_eager_fallback(cuda, monkeypatch):

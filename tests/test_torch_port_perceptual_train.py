@@ -142,9 +142,11 @@ def test_perceptual_eval_step_matches_jax(case, weights):
     (dict(image_mix_loss_func="mse", compute_dtype="bfloat16"), None),
 ])
 def test_trainer_resolves_the_weights_like_jax(extra, mode, monkeypatch):
-    """The Trainer's loss config (``lpips_dtype`` = the compute dtype),
-    its ``lpips_mode`` and the kind of weights it resolves, as the JAX
-    Trainer's."""
+    """A training Trainer's loss config (``lpips_dtype`` = the compute
+    dtype), its ``lpips_mode`` and the kind of weights it resolves, as
+    the JAX Trainer's (which resolves them in both modes); an eval-mode
+    Trainer resolves none and keeps the ``lpips_mode`` of its settings
+    (ROADMAP item 19)."""
     from superresolution_aniso_mri_tpu.train import trainer as jtrainer
     from superresolution_aniso_mri_tpu_torch.train import Trainer
 
@@ -157,7 +159,9 @@ def test_trainer_resolves_the_weights_like_jax(extra, mode, monkeypatch):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         want = jtrainer.Trainer(dict(args), eval_mode=True)
-        got = Trainer(dict(args), eval_mode=True, device="cpu")
+        got = Trainer(dict(args), device="cpu")
+        served = Trainer(dict(args, lpips_mode="as-saved"), eval_mode=True,
+                         device="cpu")
     assert got.args.get("lpips_mode") == want.args.get("lpips_mode") == mode
     for field in ("recon_loss", "image_mix_loss_func", "lpips_dtype"):
         assert getattr(got.loss_config, field) == getattr(want.loss_config,
@@ -165,6 +169,8 @@ def test_trainer_resolves_the_weights_like_jax(extra, mode, monkeypatch):
     assert (got.lpips_params is None) == (want.lpips_params is None)
     if mode == "encoder_backbone":
         assert got.lpips_params["kind"] == "enc"
+    assert served.lpips_params is None
+    assert served.args["lpips_mode"] == "as-saved"
 
 
 def _settings(exper):

@@ -293,11 +293,16 @@ def test_unported_options_raise(pair, kw, exc, match):
 
 
 def test_combo_and_packed_raise(pair):
+    """An SR model that is not the module ``Trainer.load_caisr`` loads
+    (JAX's (params, batch_stats) pair) raises a TypeError on both entry
+    points; the packed decoder (A11) raises NotImplementedError."""
     port = pair[1]
     port.params_sr = ({}, {})
     try:
-        with pytest.raises(NotImplementedError, match="CAISR"):
+        with pytest.raises(TypeError, match="load_caisr"):
             create_super_volume(port, _volume(0))
+        with pytest.raises(TypeError, match="load_caisr"):
+            create_super_volumes(port, [_volume(0)] * 2)
     finally:
         del port.params_sr
     with pytest.raises(NotImplementedError, match="packed"):
@@ -376,4 +381,7 @@ def test_port_sources_import_nothing_of_the_jax_package():
             "train_loop.py", "__main__.py", "create_hr_images.py",
             "find_best_model.py", "sweep.py",
             "evaluate_image.py", "transforms.py", "device_cache.py",
-            "data_config.py"} <= set(scanned)
+            "data_config.py", "combine_ae_caisr.py", "reconstruction.py",
+            "quantitative_comparison.py", "ppl.py", "drivers.py",
+            "model_registry.py", "sax_to_lax.py", "seg_metrics.py",
+            "clinical.py"} <= set(scanned)

@@ -209,6 +209,21 @@ def jax_trainer(model, params, stats, args, **opt):
     return t
 
 
+def jax_eval_trainer(model, params, stats, family="ae"):
+    """A JAX ``Trainer`` without ``__init__`` holding what its eval-mode
+    methods read (``_ae_params``, ``encode`` / ``decode`` / ``predict``,
+    ``load_caisr``, the serving surface)."""
+    from superresolution_aniso_mri_tpu.train import Trainer
+
+    t = object.__new__(Trainer)
+    t.model, t.model_config, t.family = model, model.config, family
+    t.state = jax_train_state(model, params, stats, lr=1e-4)
+    t.mesh = t.params_sr = t.lpips_params = None
+    t._jit_encode = t._jit_decode = None
+    t.args = {"model": "ae_combined"}
+    return t
+
+
 def port_trainer(params, stats, args, model_kw=None):
     """The port's CPU ``Trainer`` of ``args`` with the weights of a flax
     tree."""
