@@ -162,12 +162,33 @@ Phases (any failure ends the run with a non-zero exit):
      ``create_brain_volumes`` on it. s/volume and s/call beside the
      card; SSIM launches counted and each pair held against the plain
      version.
+ 15. dataset preparation, SR-segmentation scoring and the perceptual
+     tools, on phase 8's data root and the experiments of phases 8 and
+     12: ``create_dhcp_dataset`` over ``DHCP_SUBJECTS`` raw subjects of
+     ``DHCP_SHAPE`` at 0.5 mm, their 4x LR files and ``get_datasets -d
+     dHCP``; ``create_masi_cropped_dataset`` and
+     ``create_masi_lr_dataset`` over ``MASI_PATIENTS`` raw patients with
+     6-class references, then ``get_datasets -d brainMASI``;
+     ``create_centered_dataset`` of phase 12's patients (a 2-frame ED/ES
+     cine where phase 8 wrote none), read back by ``load_acdc_volumes``,
+     a centered validation frame served by phase 8's ACDC model and
+     scored by ``create_hr_images``; an SR-seg set of fold-0 validation
+     ids from phase 12's ED/ES frames and ``_gt`` maps, the
+     MultiChannelAE's decoded labels scored by
+     ``evaluate_sr_segmentation`` (the references against themselves:
+     Dice 1, HD95 and ASSD 0); ``fit-perceptual-head`` on phase 8's
+     OASIS caisr checkpoint and ``lpips-gap-study`` with the artifact
+     (4 slices of 128²), both on the card against the CPU (2 slices of
+     64²); ``convert-lpips-weights`` of a seeded torchvision-shaped
+     VGG16 and lin state dict, its LPIPS equal to the same arrays
+     passed directly. s/volume and s/call beside the card; SSIM launches
+     counted and each pair held against the plain version.
 The main path (serve linear → score) runs with every kernel launch count
 set to 0 just before it and read just after; so do the train phase's
 path (serve the trained checkpoint → score), each find-best sweep of
 phase 7, phase 8's find-best, phase 9's scoring of the perceptual
 checkpoint and of the baselines, phase 10's scoring of the fitted
-table, phase 11's, 12's, 13's and 14's scoring paths (every pair each
+table, phase 11's, 12's, 13's, 14's and 15's scoring paths (every pair each
 scored held against the plain version). The line before the last lists every
 kernel with its check, launches (``launches``: the main path;
 ``launches_by_path``: every counted path) and times; the last line is
@@ -289,6 +310,20 @@ LEGACY_CARD_RTOL = 1e-5
 # combo's; MNISTRoto at the OASIS recipe's widths (the sampler's
 # triplets are --width square, so no --aug_patch_size)
 COMBO_ATOL = 1e-5
+# phase 15: dataset preparation, SR-segmentation scoring, the perceptual
+# tools. dHCP subjects at the T2 grid (0.5 mm) prepared for the README's
+# neonatal 4x row (2.0 → 0.5 mm); brainMASI on a cut grid and patch, 17
+# patients so that the reference split (15 training) leaves a test set;
+# the SR-seg set is the first 3 fold-0 validation ids (the loader's
+# limited_load); the perceptual tools at 4 slices of 128². The fitted
+# lins on the card against the CPU: 400 Adam steps over float32 feature
+# sums that cuDNN and oneDNN add in other orders
+DHCP_SUBJECTS, DHCP_SHAPE, DHCP_DS = 2, (217, 290, 290), 4
+DHCP_SPACING = (0.5, 0.5, 0.5)
+MASI_PATIENTS, MASI_SHAPE, MASI_PATCH, MASI_DS = 17, (64, 80, 64), 96, 4
+SR_SEG_PATIENTS = 3
+PERCEPT_ARGV = ["--n_slices", "4", "--size", "128"]
+TOOLS_FIT_RTOL = 1e-3
 ROTO_ARGV = ["-d", "MNISTRoto", "-m", "ae_combined", "-b", "16", "--width",
              "64", "--latent_width", "16", "--latent", "128",
              "--downsample_steps", str(OASIS_DS), "-e", "1",
@@ -2940,6 +2975,321 @@ def check_eval(tmp: str, seed: int, card: str, dev) -> dict:
     return out
 
 
+def _torchvision_vgg16(seed: int) -> tuple:
+    """A seeded torchvision-shaped VGG16 state dict (``features.{i}``
+    convs, a classifier entry) and an LPIPS v0.1 lin state dict
+    (``lin{k}.model.1.weight``), as torch tensors."""
+    import torch
+
+    from superresolution_aniso_mri_tpu_torch.ops.lpips import (_VGG_PLAN,
+                                                               LPIPS_CHANNELS)
+    from superresolution_aniso_mri_tpu_torch.tools.convert_lpips_weights \
+        import _VGG16_CONV_IDX
+
+    rng = np.random.RandomState(seed)
+    vgg, cin = {}, 3
+    for idx, (cout, _) in zip(_VGG16_CONV_IDX, _VGG_PLAN):
+        vgg[f"features.{idx}.weight"] = torch.from_numpy(
+            (rng.randn(cout, cin, 3, 3) * np.sqrt(2.0 / (9 * cin)))
+            .astype(np.float32))
+        vgg[f"features.{idx}.bias"] = torch.from_numpy(
+            (rng.randn(cout) * 0.01).astype(np.float32))
+        cin = cout
+    vgg["classifier.0.bias"] = torch.zeros(4096)
+    lin = {f"lin{k}.model.1.weight": torch.from_numpy(
+        (np.abs(rng.randn(1, c, 1, 1)) / c).astype(np.float32))
+        for k, c in enumerate(LPIPS_CHANNELS)}
+    return vgg, lin
+
+
+def check_prep(tmp: str, seed: int, card: str, dev) -> dict:
+    """Phase 15 (see the module docstring), on phase 8's data root in
+    ``tmp`` with phase 8's ``oasis_cache`` and ``acdc`` and phase 12's
+    ``lbl`` experiments and labeled frames; returns the SSIM launches of
+    its scoring path, the kernel's largest error on the pairs it scored
+    and the phase's numbers."""
+    import torch
+
+    from superresolution_aniso_mri_tpu_torch.data import (
+        create_centered_dataset, create_masi_cropped_dataset,
+        create_masi_lr_dataset, get_acdc_fold_patient_ids)
+    from superresolution_aniso_mri_tpu_torch.data.datasets import (
+        create_dhcp_dataset, create_lr_dataset, create_split_file,
+        get_datasets, load_acdc_volumes)
+    from superresolution_aniso_mri_tpu_torch.data.volume import \
+        rescale_intensities
+    from superresolution_aniso_mri_tpu_torch.evaluate import (
+        create_hr_images, evaluate_sr_segmentation)
+    from superresolution_aniso_mri_tpu_torch.infer import create_super_volume
+    from superresolution_aniso_mri_tpu_torch.ops import lpips
+    from superresolution_aniso_mri_tpu_torch.ops.perceptual import (
+        enc_perceptual_params, uniform_lins)
+    from superresolution_aniso_mri_tpu_torch.tools import (
+        convert_lpips_weights, fit_perceptual_head, lpips_gap_study)
+    from superresolution_aniso_mri_tpu_torch.train import get_trainer
+    from superresolution_aniso_mri_tpu_torch.utils import (read_image,
+                                                           write_image)
+
+    _free_cuda()
+    t_phase = time.perf_counter()
+    out: dict = {"launches": {}, "kernel_err": 0.0}
+    root = os.environ["SR_DATA_ROOT"]
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def volumes_ok(vols, n, what):
+        if len(vols) != n or not all(
+                np.isfinite(v.image).all() and 0.0 <= v.image.min()
+                and v.image.max() <= 1.0 for v in vols):
+            raise AssertionError(f"{what}: {len(vols)} volumes read back "
+                                 f"(expected {n}, finite, in [0, 1])")
+
+    # 1. dHCP: raw subjects at the T2 grid → create_dhcp_dataset (the
+    # brain box, background zeroed, padded to 256) → the 4x LR files →
+    # get_datasets -d dHCP
+    raw = os.path.join(tmp, "dhcp_raw")
+    subjects = [f"sub-CC{i + 1:05d}" for i in range(DHCP_SUBJECTS)]
+    _, out["dhcp_fabricate_s"] = timed(lambda: _write_volumes([(
+        os.path.join(raw, sub, "ses-1", "anat",
+                     f"{sub}_ses-1_desc-restore_T2w.nii.gz"),
+        phantom(seed + 600 + i, *DHCP_SHAPE) * 1000.0, DHCP_SPACING)
+        for i, sub in enumerate(subjects)]))
+    dhcp_root = os.path.join(root, "dHCP_cropped_256")
+    written, secs = timed(lambda: create_dhcp_dataset(raw, dhcp_root,
+                                                      patch_size=256))
+    out["dhcp_prepare_s_per_volume"] = secs / len(written)
+    lr, secs = timed(lambda: create_lr_dataset("dHCP", DHCP_DS))
+    out["dhcp_lr_s_per_volume"] = secs / len(lr)
+    create_split_file(dhcp_root, subjects, (1, 0, 1))
+    (train, val), out["dhcp_get_datasets_s"] = timed(lambda: get_datasets(
+        {"dataset": "dHCP", "downsample_steps": DHCP_DS}))
+    volumes_ok(train + val, DHCP_SUBJECTS, "dHCP")
+    shapes = [tuple(v.image.shape) for v in train + val]
+    log(f"prep dHCP: {DHCP_SUBJECTS} x {DHCP_SHAPE} at {DHCP_SPACING} mm "
+        f"(written in {out['dhcp_fabricate_s']:.1f} s) → "
+        f"{[os.path.basename(f) for f in written]} "
+        f"{out['dhcp_prepare_s_per_volume']:.2f} s/volume, LR "
+        f"{out['dhcp_lr_s_per_volume']:.2f} s/volume, get_datasets "
+        f"{out['dhcp_get_datasets_s']:.2f} s, shapes {shapes} [{card}]")
+    if not all(s[1] >= 256 and s[2] >= 256 and s[0] <= DHCP_SHAPE[0]
+               for s in shapes):
+        raise AssertionError(f"dHCP crops {shapes} not padded to 256")
+
+    # 2. brainMASI: images + 6-class references → the brain crop and its
+    # split → the thick-slice LR set → get_datasets -d brainMASI
+    mraw = os.path.join(tmp, "masi_raw")
+    jobs = []
+    for i in range(MASI_PATIENTS):
+        img = phantom(seed + 700 + i, *MASI_SHAPE)
+        lbl = np.digitize(img, (0.05, 0.3, 0.45, 0.6, 0.75, 0.85))
+        jobs.append((os.path.join(mraw, "images", f"{1000 + i}.nii.gz"),
+                     img * 1000.0, (1.0, 1.0, 1.0)))
+        jobs.append((os.path.join(mraw, "manual_references", "6classes",
+                                  f"{1000 + i}.nii.gz"),
+                     lbl.astype(np.float32), (1.0, 1.0, 1.0)))
+    _write_volumes(jobs)
+    cropped_dir = os.path.join(tmp, "masi_cropped")
+    cropped, secs = timed(lambda: create_masi_cropped_dataset(
+        mraw, cropped_dir, patch_size=MASI_PATCH))
+    out["masi_crop_s_per_volume"] = secs / len(cropped)
+    lr, secs = timed(lambda: create_masi_lr_dataset(
+        cropped_dir, os.path.join(root, "BrainMASI_LR_co")))
+    out["masi_lr_s_per_volume"] = secs / len(lr)
+    train, val = get_datasets({"dataset": "brainMASI",
+                               "downsample_steps": MASI_DS})
+    volumes_ok(train, 15, "brainMASI training")
+    volumes_ok(val, MASI_PATIENTS - 15, "brainMASI test")
+    log(f"prep brainMASI: {MASI_PATIENTS} x {MASI_SHAPE} → crop "
+        f"{out['masi_crop_s_per_volume']:.3f} s/volume "
+        f"{tuple(train[0].image.shape)}, LR "
+        f"{out['masi_lr_s_per_volume']:.3f} s/volume; get_datasets "
+        f"{len(train)} training / {len(val)} test [{card}]")
+
+    # 3. ACDC centering of phase 12's patients (a 2-frame ED/ES cine
+    # where phase 8 wrote none), read back by load_acdc_volumes; phase
+    # 8's ACDC model serves and scores a centered validation frame
+    src = os.path.join(root, "ACDC", "all_cardiac_phases")
+    pids = [f"patient{i + 1:03d}" for i in range(LABELED_PATIENTS)]
+    jobs = []
+    for pid in pids:
+        d = os.path.join(src, pid)
+        if not os.path.isfile(os.path.join(d, f"{pid}_frame01_gt.nii.gz")):
+            raise AssertionError(f"{pid}: phase 12 wrote no frame01_gt")
+        if not os.path.isfile(os.path.join(d, f"{pid}_4d.nii.gz")):
+            cine = np.stack([read_image(os.path.join(
+                d, f"{pid}_frame{fr:02d}.nii.gz"))[0] for fr in (1, 12)])
+            jobs.append((os.path.join(d, f"{pid}_4d.nii.gz"), cine,
+                         ACDC_SPACING))
+    _write_volumes(jobs)
+    cdir = os.path.join(tmp, "acdc_centered")
+    centered, secs = timed(lambda: create_centered_dataset(src, cdir, pids))
+    out["center_s_per_volume"] = secs / len(centered)
+    moved = read_image(centered[0])[0]
+    orig = read_image(os.path.join(src, pids[0], f"{pids[0]}_4d.nii.gz"))[0]
+    if moved.shape != orig.shape or np.array_equal(moved, orig):
+        raise AssertionError("centering left the cine as it was")
+    val = load_acdc_volumes("validation", src_path=cdir)[:1]
+    trainer = get_trainer(os.path.join(tmp, "acdc"), "last", device=dev)
+    res, n, err, secs = _counted_scoring(
+        lambda: create_hr_images(trainer, val, 2), "phase 15 centered ACDC")
+    out["launches"]["prep_centered_create_hr_images"] = n
+    out["kernel_err"] = max(out["kernel_err"], err)
+    out["centered_create_hr_images_s_per_volume"] = secs
+    agg = {k: res["aggregate"][k][0] for k in ("ssim", "psnr")}
+    log(f"prep ACDC centering: {len(centered)} cines "
+        f"{out['center_s_per_volume']:.2f} s/volume; centered validation "
+        f"frame {val[0].image.shape} served and scored: {json.dumps(agg)}, "
+        f"{secs:.3f} s, {n} SSIM launch [{card}]")
+    if n != 1 or not all(np.isfinite(v) for v in agg.values()):
+        raise AssertionError("the centered frame was not scored")
+    del trainer
+    _free_cuda()
+
+    # 4. SR segmentation: phase 12's ED/ES frames and _gt maps as the
+    # SR-seg set of fold-0 validation ids, the MultiChannelAE's decoded
+    # labels as the predictions; the references scored against
+    # themselves as the self-check
+    lbl_trainer = get_trainer(os.path.join(tmp, "lbl"), "caisr", device=dev)
+    sr_root = os.path.join(tmp, "sr_seg")
+    fold = get_acdc_fold_patient_ids(0, "validation")[:SR_SEG_PATIENTS]
+    for num, src_pid in zip(fold, pids):
+        pid = f"patient{num:03d}"
+        imgs, refs = [], []
+        for phase, fr in (("ED", 1), ("ES", 12)):
+            stem = os.path.join(src, src_pid, f"{src_pid}_frame{fr:02d}")
+            img = read_image(stem + ".nii.gz")[0]
+            gt = read_image(stem + "_gt.nii.gz")[0].astype(np.int32)
+            pred = create_super_volume(
+                lbl_trainer, rescale_intensities(img, percs=(1, 99)),
+                alpha_range=[0.5], downsample_steps=2,
+                generate_inbetween_slices=True,
+                labels=gt)["upsampled_labels"]
+            if pred.shape != gt.shape:
+                raise AssertionError(f"decoded labels {pred.shape} vs "
+                                     f"{gt.shape}")
+            for sub, arr in (("sr_seg_pred", pred), ("sr_seg_self", gt)):
+                d = os.path.join(tmp, sub, "pred_labels")
+                os.makedirs(d, exist_ok=True)
+                write_image(os.path.join(d, f"{pid}_{phase}.nii.gz"), arr,
+                            spacing=ACDC_SPACING, dtype=np.int32)
+            imgs.append(img)
+            refs.append(gt)
+        for sub, arr, dt in (("images_sr", np.stack(imgs), None),
+                             ("ref_labels", np.stack(refs), np.int32)):
+            os.makedirs(os.path.join(sr_root, sub), exist_ok=True)
+            write_image(os.path.join(sr_root, sub, f"{pid}.nii.gz"), arr,
+                        spacing=ACDC_SPACING, dtype=dt)
+    del lbl_trainer
+    _free_cuda()
+    res, out["sr_seg_s"] = timed(lambda: evaluate_sr_segmentation(
+        os.path.join(tmp, "sr_seg_pred"), sr_root, fold=0,
+        limited_load=True))
+    selfres = evaluate_sr_segmentation(os.path.join(tmp, "sr_seg_self"),
+                                       sr_root, fold=0, limited_load=True)
+    table = {s: {m: round(v[0], 4) for m, v in ms.items()}
+             for s, ms in res["aggregate"].items()}
+    out["sr_seg"] = table
+    log(f"prep SR segmentation: {len(res['per_case'])} cases "
+        f"({SR_SEG_PATIENTS} patients x ED/ES {LABELED_SHAPE}) in "
+        f"{out['sr_seg_s']:.2f} s; mean Dice / HD95 / ASSD (mm) "
+        f"{json.dumps(table)} [{card}]")
+    self_ok = all(c[s]["dice"] == 1.0 and c[s]["hd95"] == 0.0
+                  and c[s]["assd"] == 0.0
+                  for c in selfres["per_case"].values() for s in c)
+    if len(res["per_case"]) != 2 * SR_SEG_PATIENTS or not self_ok:
+        raise AssertionError("SR segmentation scoring failed its "
+                             "self-check (references against themselves)")
+
+    # 5. the perceptual tools: fit the encoder artifact on phase 8's
+    # OASIS experiment, gate it with the distortion study, convert
+    # torchvision-layout VGG16 + lin weights
+    exper = os.path.join(tmp, "oasis_cache")
+    enc_npz = os.path.join(tmp, "perceptual_enc.npz")
+    (meta, lins), out["fit_s"] = timed(lambda: fit_perceptual_head.main(
+        ["--exper_dir", exper, "--out", enc_npz] + PERCEPT_ARGV))
+    out["rank_accuracy"] = meta["fit"]["rank_accuracy"]
+    gap, out["gap_s"] = timed(lambda: lpips_gap_study.main(
+        ["--enc_npz", enc_npz, "--json_out", os.path.join(tmp, "gap.json")]
+        + PERCEPT_ARGV))
+    out["spearman"] = {k: v["mean"] for k, v in gap["spearman"].items()}
+    log(f"prep perceptual tools: fit_s {out['fit_s']:.2f}, rank accuracy "
+        f"{out['rank_accuracy']:.4f} over {meta['fit']['pairs']} pairs, "
+        f"gap_s {out['gap_s']:.2f}, Spearman {json.dumps(out['spearman'])}"
+        f" [{card}]")
+    if not (all(np.isfinite(lw).all() and (lw >= 0).all() for lw in lins)
+            and all(np.isfinite(v) for v in out["spearman"].values())):
+        raise AssertionError("the fitted lins or the gap study's table "
+                             "are not finite")
+
+    # card against CPU: the lins fitted on one fit set, the distortion
+    # study's per-pair distances of the same slices
+    cfg, variables, _ = fit_perceptual_head.harvest_encoder(exper, "caisr",
+                                                            dev)
+    data = fit_perceptual_head.build_fit_set(2, 64, device="cpu")
+    fitted = [fit_perceptual_head.fit_lins(enc_perceptual_params(
+        cfg, variables, uniform_lins(cfg), device=d), data)[0]
+        for d in (dev, "cpu")]
+    out["fit_card_vs_cpu_rel"] = float(np.abs(fitted[0] - fitted[1]).max()
+                                       / np.abs(fitted[1]).max())
+    suite = lpips_gap_study.distortion_suite(np.random.RandomState(seed))
+    weights = [(d, lpips.get_lpips_params(device=d),
+                lpips_gap_study.load_enc_perceptual(enc_npz, d))
+               for d in (dev, "cpu")]
+    pair_rel = 0.0
+    for sl in lpips_gap_study.reference_slices(2, 64):
+        dists = lpips_gap_study.distorted(sl, suite)
+        rows = [lpips_gap_study.score_suite(
+            sl, dists, params, enc, lpips_gap_study.msssim_levels(64), d)
+            for d, params, enc in weights]
+        for k, want in rows[1].items():
+            want = np.asarray(want)
+            pair_rel = max(pair_rel, float(np.abs(
+                np.asarray(rows[0][k]) - want).max() / np.abs(want).max()))
+    out["gap_card_vs_cpu_rel"] = pair_rel
+    log(f"prep perceptual tools card vs CPU: fitted lins rel "
+        f"{out['fit_card_vs_cpu_rel']:.3e} (limit {TOOLS_FIT_RTOL}), "
+        f"gap-study per-pair distances rel {pair_rel:.3e} (limit "
+        f"{LPIPS_CARD_RTOL})")
+    if not (out["fit_card_vs_cpu_rel"] <= TOOLS_FIT_RTOL
+            and pair_rel <= LPIPS_CARD_RTOL):
+        raise AssertionError("the perceptual tools differ on the card")
+
+    vgg, lin = _torchvision_vgg16(seed + 15)
+    paths = {k: os.path.join(tmp, f"{k}.pth") for k in ("vgg16", "lin")}
+    torch.save(vgg, paths["vgg16"])
+    torch.save(lin, paths["lin"])
+    converted = os.path.join(tmp, "lpips_vgg.npz")
+    _, out["convert_s"] = timed(lambda: convert_lpips_weights.main(
+        ["--vgg16", paths["vgg16"], "--lin", paths["lin"], "--out",
+         converted]))
+    resolved = lpips.get_lpips_params(converted, device=dev)
+    mode = lpips.lpips_weights_info()["mode"]
+    direct = lpips._device({
+        "convs": [{"kernel": vgg[f"features.{i}.weight"].numpy().transpose(
+            2, 3, 1, 0), "bias": vgg[f"features.{i}.bias"].numpy()}
+            for i in convert_lpips_weights._VGG16_CONV_IDX],
+        "lins": [{"kernel": lin[f"lin{k}.model.1.weight"].numpy()
+                  .transpose(2, 3, 1, 0)} for k in range(len(lin))]}, dev)
+    pair = torch.from_numpy(phantom(seed + 16, 8, 128, 128)).to(dev)[:, None]
+    got = lpips.lpips_distance(resolved, pair[:4], pair[4:])
+    want = lpips.lpips_distance(direct, pair[:4], pair[4:])
+    out["convert_lpips_max_abs_diff"] = float((got - want).abs().max())
+    log(f"prep convert-lpips-weights: {out['convert_s']:.2f} s, mode "
+        f"{mode}; lpips_distance with the converted params against the "
+        f"same arrays passed directly: max |Δ| "
+        f"{out['convert_lpips_max_abs_diff']:.3e} (limit 0)")
+    if mode != "converted" or out["convert_lpips_max_abs_diff"] != 0.0:
+        raise AssertionError("the converted LPIPS weights differ")
+
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"prep timings [{card}]: " + json.dumps(out))
+    return out
+
+
 def _kernel_kind(name: str) -> str:
     """Bucket of a device event by its kernel name."""
     low = name.lower()
@@ -3202,6 +3552,8 @@ def main() -> int:
         alpha = check_alpha(tmp, args.seed, card, dev, args.profile)
         # ---- 14. evaluation: the combo, the paper's scoring, MNISTRoto -
         evaluation = check_eval(tmp, args.seed, card, dev)
+        # ---- 15. dataset preparation, SR segmentation, perceptual tools
+        prep = check_prep(tmp, args.seed, card, dev)
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)  # name and power limit, as nvidia-smi prints them
@@ -3225,7 +3577,7 @@ def main() -> int:
             **{f"families_{k}": v
                for k, v in families["launches"].items()},
             **labeled["launches"], **alpha["launches"],
-            **evaluation["launches"]},
+            **evaluation["launches"], **prep["launches"]},
         "max_abs_err": max(kcheck["max_abs_err"],
                            disk["find_best_kernel_err"],
                            percept["percept_kernel_err"],
@@ -3233,7 +3585,8 @@ def main() -> int:
                            families["kernel_err"],
                            labeled["kernel_err"],
                            alpha["kernel_err"],
-                           evaluation["kernel_err"]), "ok": True,
+                           evaluation["kernel_err"],
+                           prep["kernel_err"]), "ok": True,
         "ms": kernel_ms, "ms_cold": kernel_cold_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "bound_share": bound_ms / kernel_ms,

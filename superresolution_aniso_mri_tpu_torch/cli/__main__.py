@@ -5,14 +5,17 @@
 with the commands of the JAX package's root scripts (same flags):
 train-brain, train-cardiac, generate-hr-volumes, serve-hr-volumes,
 find-best-model, fit-latent-taps, and the JAX package's tools
-convert-reference-checkpoint (a reference torch experiment → SRTPU1)
-and export-reference-checkpoint (a checkpoint → a reference torch
-.models). Exits 0 on success, as the JAX package's console scripts do.
+convert-reference-checkpoint (a reference torch experiment → SRTPU1),
+export-reference-checkpoint (a checkpoint → a reference torch
+.models), lpips-gap-study, fit-perceptual-head and
+convert-lpips-weights (``tools/``). Exits 0 on success, as the JAX
+package's console scripts do.
 """
 from __future__ import annotations
 
 import sys
 
+from ..tools import convert_lpips_weights, fit_perceptual_head, lpips_gap_study
 from . import entry
 
 COMMANDS = {
@@ -24,6 +27,9 @@ COMMANDS = {
     "fit-latent-taps": entry.fit_latent_taps,
     "convert-reference-checkpoint": entry.convert_reference_checkpoint,
     "export-reference-checkpoint": entry.export_reference_checkpoint,
+    "lpips-gap-study": lpips_gap_study.main,
+    "fit-perceptual-head": fit_perceptual_head.main,
+    "convert-lpips-weights": convert_lpips_weights.main,
 }
 
 

@@ -10,12 +10,14 @@ native host loader is not ported). Split files are read and written
 without pyyaml (``config/settings.py``).
 
 ACDCLBL reads the labeled ED/ES frames (``patientXXX_frameYY.nii.gz``
-and their ``_gt`` label maps) beside ACDC's 4D cines. Not ported: the
-eval-only loaders (sunnybrook, ARVC, SAX; item 10) and
-``create_dhcp_dataset`` (item 12).
+and their ``_gt`` label maps) beside ACDC's 4D cines. The eval-only
+loaders (``load_sunnybrook_volumes``, ``load_arvc_volumes``,
+``load_sax_volumes``) and the dHCP preparation (``create_dhcp_dataset``)
+are copies of JAX's, registered in ``get_datasets`` no more than there.
 """
 from __future__ import annotations
 
+import glob
 import os
 import re
 import warnings
@@ -23,11 +25,13 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import scipy.ndimage as ndi
 
 from ..config.data_config import get_config
 from ..config.settings import load_string_lists, save_string_lists
 from ..utils.nifti import read_image, write_image
 from .synthetic import make_toy_dataset
+from .transforms import pad_to_size
 from .volume import (Volume, apply_2d_zoom_3d, apply_2d_zoom_4d,
                      create_lr_volume, rescale_intensities)
 
@@ -460,3 +464,160 @@ def get_datasets(args: Dict) -> Tuple[List[Volume], List[Volume]]:
         return train, val
 
     raise ValueError(f"unknown dataset {dataset!r}")
+
+
+# ---------------------------------------------------------------------------
+# eval-only cardiac loaders (sunnybrook / ARVC / SAX) and dHCP preprocessing
+# ---------------------------------------------------------------------------
+
+SUNNYBROOK_SPACING = (8.0, 1.25, 1.25)
+
+
+def load_sunnybrook_volumes(src_path: Optional[str] = None,
+                            resample: bool = True,
+                            rescale: bool = True,
+                            limited_load: bool = False,
+                            file_suffix: str = "_ES.mhd") -> List[Volume]:
+    """Sunnybrook ED/ES short-axis MetaImage volumes (eval-only dataset;
+    reference: datasets/sunnybrook/dataset.py:10-60 — fixed 8x1.25x1.25mm
+    spacing, x-flip, optional 1.4mm in-plane resample + 1-99 rescale)."""
+    cfg = get_config("sunnybrook")
+    root = src_path or cfg.image_dir
+    files = sorted(glob.glob(os.path.join(os.path.expanduser(root),
+                                          "*" + file_suffix)))
+    if not files:
+        raise FileNotFoundError(f"no '*{file_suffix}' under {root}")
+    if limited_load:
+        files = files[:cfg.limited_load_max]
+    volumes = []
+    for fname in files:
+        base = os.path.basename(fname)
+        pid = base.replace(file_suffix, "")
+        # anchored suffix swap on the BASENAME — a path component or
+        # patient id containing 'ES' must not be rewritten. The phase
+        # label comes FROM the suffix: a hardcoded 'ES' would mislabel
+        # every volume of an ED-suffixed load (and a phase-less suffix
+        # has no companion to derive)
+        first = ("ES" if "ES" in file_suffix
+                 else "ED" if "ED" in file_suffix else "")
+        other = {"ES": "ED", "ED": "ES"}.get(first)
+        phases = [(first, fname)]
+        if other:
+            comp_name = (base[: -len(file_suffix)]
+                         + file_suffix.replace(first, other))
+            comp_path = os.path.join(os.path.dirname(fname), comp_name)
+        else:
+            comp_path = None
+        if comp_path and os.path.isfile(comp_path):
+            phases.append((other, comp_path))
+        elif comp_path:
+            warnings.warn(f"sunnybrook: no {other} companion for {base} "
+                          f"— loading {first} phase only", stacklevel=2)
+        for phase, path in phases:
+            arr, _sp, _ = read_image(path)
+            arr = np.flip(arr.astype(np.float32), axis=2).copy()
+            spacing = np.asarray(SUNNYBROOK_SPACING, np.float64)
+            if resample and cfg.voxel_spacing_resample is not None:
+                arr = apply_2d_zoom_3d(arr, spacing[-2:],
+                                       cfg.voxel_spacing_resample)
+                spacing = np.array([spacing[0],
+                                    *cfg.voxel_spacing_resample], np.float64)
+            if rescale:
+                arr = rescale_intensities(arr, percs=(1, 99))
+            volumes.append(Volume(image=arr.astype(np.float32),
+                                  spacing=spacing,
+                                  patient_id=(f"{pid}_{phase}" if phase
+                                              else pid)))
+    return volumes
+
+
+def load_arvc_volumes(split: str = "training", limited_load: bool = False,
+                      src_path: Optional[str] = None) -> List[Volume]:
+    """ARVC 4D cardiac pairs — same per-frame pipeline as ACDC
+    (reference: datasets/ARVC/dataset_sr.py, a subclass of the ACDC 4D
+    pairs dataset)."""
+    cfg = get_config("ARVC")
+    root = src_path or cfg.image_dir
+    return load_acdc_volumes(split=split, limited_load=limited_load,
+                             src_path=root, dataset="ARVC")
+
+
+def create_dhcp_dataset(src_path: str, out_path: str,
+                        patch_size: int = 256,
+                        background_threshold: float = 0.05) -> List[str]:
+    """Crop raw dHCP volumes to the brain bounding box, zero the
+    background, pad to patch_size and save
+    (reference: datasets/dHCP/create_dataset.py:87-136 — the original
+    uses nilearn's background mask; here a percentile-threshold mask
+    (same outcome: brain bbox + zeroed background) since nilearn is not
+    available)."""
+    src_path = os.path.expanduser(src_path)
+    out_path = os.path.expanduser(out_path)
+    os.makedirs(out_path, exist_ok=True)
+    written = []
+    for path in _find_files(src_path, ".nii.gz"):
+        arr, spacing, _ = read_image(path)
+        arr = arr.astype(np.float32)
+        thr = background_threshold * np.percentile(arr, 99)
+        mask = ndi.binary_fill_holes(
+            ndi.binary_closing(arr > thr, iterations=2))
+        if not mask.any():
+            continue
+        nz = np.nonzero(mask)
+        sl = tuple(slice(int(a.min()), int(a.max()) + 1) for a in nz)
+        cropped = np.where(mask[sl], arr[sl], 0.0).astype(np.float32)
+        cropped = pad_to_size(cropped, patch_size)
+        pid = _patient_id_from_file("dHCP", path)
+        if os.path.basename(path).endswith("t2w.nii.gz"):
+            out = os.path.join(out_path, os.path.basename(path))
+        else:
+            out = os.path.join(out_path, f"{pid}_t2w.nii.gz")
+        if out in written or os.path.isfile(out):
+            # several sessions/files of the same subject must not
+            # silently overwrite each other — BOTH branches (same-named
+            # t2w files from different source subdirs collide too):
+            # uniquify from the full source stem, then a counter
+            stem = os.path.basename(path)
+            for ext in (".nii.gz", ".nii"):
+                if stem.endswith(ext):
+                    stem = stem[: -len(ext)]
+                    break
+            out = os.path.join(out_path, f"{stem}_t2w.nii.gz")
+            k = 2
+            while out in written or os.path.isfile(out):
+                out = os.path.join(out_path,
+                                   f"{stem}_{k}_t2w.nii.gz")
+                k += 1
+        write_image(out, cropped, spacing=spacing)
+        written.append(out)
+    return written
+
+
+def load_sax_volumes(root_dir: str, file_suffix: str = ".nii.gz",
+                     resample: bool = True, rescale: bool = True,
+                     new_spacing=(1.4, 1.4),
+                     limited_load: bool = False,
+                     limited_load_max: int = 5) -> List[Volume]:
+    """Generic short-axis eval-only loader (PIE-style datasets —
+    reference: datasets/cardiac_image.py:7-120, sax_dataset.py:9-140:
+    read a directory of SAX volumes, resample in-plane, rescale)."""
+    files = _find_files(root_dir, file_suffix)
+    if not files:
+        raise FileNotFoundError(f"no '*{file_suffix}' under {root_dir}")
+    if limited_load:
+        files = files[:limited_load_max]
+    volumes = []
+    for path in files:
+        arr, spacing, _ = read_image(path)
+        arr = arr.astype(np.float32)
+        if arr.ndim == 4:
+            arr = arr[0]
+        if resample:
+            arr = apply_2d_zoom_3d(arr, spacing[-2:], new_spacing)
+            spacing = np.array([spacing[0], *new_spacing], np.float64)
+        if rescale:
+            arr = rescale_intensities(arr, percs=(1, 99))
+        volumes.append(Volume(image=arr, spacing=np.asarray(spacing),
+                              patient_id=os.path.basename(path)
+                              .replace(file_suffix, "")))
+    return volumes

@@ -2,7 +2,8 @@
 checkpoint sweeps, training-time previews, the paper's evaluation
 drivers (quantitative comparison, reconstruction, perceptual path
 length, rigid-transform sensitivity, the AE+CAISR merge, SAX→LAX
-resampling, segmentation and clinical metrics) and model registries."""
+resampling, segmentation and clinical metrics, the scoring of
+segmentations of SR volumes) and model registries."""
 from . import seg_metrics
 from .clinical import (bland_altman_arrays, compute_phase_volumes,
                        exchange_base_apex, peak_rates, structure_volume,
@@ -29,6 +30,7 @@ from .reconstruction import evaluate_model_reconstruction
 from .sax_to_lax import (grid_sample_3d, make_identity_grid,
                          make_lax_identity_grid, make_transform,
                          resample_sax_to_lax)
+from .sr_seg_eval import evaluate_sr_segmentation, score_segmentation
 from .sweep import evaluate_volumes_batched, make_sweep_evaluator
 
 __all__ = ["BRAIN_MODEL_SPECS", "CARDIAC_MODEL_SPECS", "FILTER_BENCH",
@@ -38,7 +40,8 @@ __all__ = ["BRAIN_MODEL_SPECS", "CARDIAC_MODEL_SPECS", "FILTER_BENCH",
            "create_brain_volumes", "create_cardiac_volumes",
            "create_combined_images", "create_hr_images", "evaluate_image",
            "evaluate_interpolation_performance",
-           "evaluate_model_reconstruction", "evaluate_volumes_batched",
+           "evaluate_model_reconstruction", "evaluate_sr_segmentation",
+           "evaluate_volumes_batched",
            "exchange_base_apex", "find_best_val_model",
            "format_latex_string", "generate_synth_slices_mask",
            "generate_val_volume_grids", "get_trainer_for_spec",
@@ -46,6 +49,7 @@ __all__ = ["BRAIN_MODEL_SPECS", "CARDIAC_MODEL_SPECS", "FILTER_BENCH",
            "load_results", "make_identity_grid", "make_lax_identity_grid",
            "make_sweep_evaluator", "make_transform", "peak_rates",
            "register_model", "resample_sax_to_lax", "save_3d_volume",
-           "save_4d_volume", "save_metrics", "seg_metrics",
+           "save_4d_volume", "save_metrics", "score_segmentation",
+           "seg_metrics",
            "structure_volume", "test_interpolation_with_rigid_transformations",
            "volumes_over_time"]

@@ -104,15 +104,25 @@ def load_enc_perceptual(path: str, device=None) -> Dict[str, Any]:
         meta = (json.loads(bytes(data["meta_json"]).decode())
                 if "meta_json" in data else {})
         flat = {k[2:]: data[k] for k in data.files if k.startswith("v/")}
-    variables = _unflatten(flat)
     cfg = AEConfig(**{**cfg_dict,
                       "n_res_block": cfg_dict.get("n_res_block") or None})
+    return enc_perceptual_params(cfg, _unflatten(flat), lins, meta, device)
+
+
+def enc_perceptual_params(cfg: AEConfig, enc_variables: Dict,
+                          lins: List[np.ndarray],
+                          meta: Optional[Dict] = None,
+                          device=None) -> Dict[str, Any]:
+    """The distance's parameters from the encoder's flax variables (the
+    ``save_enc_perceptual`` layout) and the lins, on ``device`` (None:
+    the CUDA device) — what ``load_enc_perceptual`` returns."""
     dev = resolve_device(device)
     state = {k: v.to(dev) for k, v in
-             flax_encoder_to_torch(variables, cfg).items()}
+             flax_encoder_to_torch(enc_variables, cfg).items()}
     return {"kind": "enc", "cfg": cfg, "variables": state,
-            "lins": [torch.from_numpy(lw).to(dev) for lw in lins],
-            "meta": meta}
+            "lins": [torch.from_numpy(np.asarray(lw, np.float32)).to(dev)
+                     for lw in lins],
+            "meta": meta or {}}
 
 
 def get_enc_perceptual_params(path: Optional[str] = None,
@@ -125,7 +135,8 @@ def get_enc_perceptual_params(path: Optional[str] = None,
         raise FileNotFoundError(
             f"encoder-perceptual weights not found at {path}; build "
             f"them from any trained experiment with "
-            f"tools/fit_perceptual_head.py --exper_dir <dir>")
+            f"python -m superresolution_aniso_mri_tpu_torch.cli "
+            f"fit-perceptual-head --exper_dir <dir>")
     return load_enc_perceptual(path, device)
 
 

@@ -1,0 +1,13 @@
+"""The perceptual tools of the port, run as commands of
+``python -m superresolution_aniso_mri_tpu_torch.cli``:
+
+- ``lpips-gap-study`` (``lpips_gap_study.py``): the distortion-suite
+  gate of the LPIPS fallback and of the encoder-perceptual artifact;
+- ``fit-perceptual-head`` (``fit_perceptual_head.py``): builds
+  ``weights/perceptual_enc.npz`` from a trained experiment;
+- ``convert-lpips-weights`` (``convert_lpips_weights.py``): torchvision
+  VGG16 + the LPIPS lins → ``weights/lpips_vgg.npz``.
+
+Ports of the JAX package's ``tools/`` scripts of those names, with their
+flags and defaults; the artifacts they write load in both packages.
+"""

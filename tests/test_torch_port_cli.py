@@ -405,15 +405,22 @@ def test_dispatcher_runs_the_commands_and_names_the_missing_one(dirs,
     from superresolution_aniso_mri_tpu_torch.cli.__main__ import (COMMANDS,
                                                                   main)
 
-    assert sorted(COMMANDS) == ["convert-reference-checkpoint",
+    assert sorted(COMMANDS) == ["convert-lpips-weights",
+                                "convert-reference-checkpoint",
                                 "export-reference-checkpoint",
                                 "find-best-model", "fit-latent-taps",
-                                "generate-hr-volumes", "serve-hr-volumes",
+                                "fit-perceptual-head",
+                                "generate-hr-volumes", "lpips-gap-study",
+                                "serve-hr-volumes",
                                 "train-brain", "train-cardiac"]
     assert main([]) == 2 and main(["generate"]) == 2
     # the commands run on the card unless the caller asks for the CPU
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["fit-latent-taps", "--exper_dir", dirs["jax"]])
+    for cmd in (["lpips-gap-study"],
+                ["fit-perceptual-head", "--exper_dir", dirs["jax"]]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(cmd)
     with pytest.raises(SystemExit, match="cardiac datasets only"):
         main(["train-cardiac"] + TINY + ["--device", "cpu"])
     r = subprocess.run([sys.executable, "-m",

@@ -1,7 +1,8 @@
 """PyTorch port on the card: the CUDA SSIM kernel against its plain
 version, the serving, scoring and training entry points on CUDA against
 the same calls on the CPU (the labeled MultiChannelAE path and the
-alpha families included), and the experiment-directory commands. Every test here needs an NVIDIA
+alpha families included), the perceptual tools, and the
+experiment-directory commands. Every test here needs an NVIDIA
 GPU and skips without one.
 
 This file imports neither JAX nor the JAX package, so it runs where
@@ -821,6 +822,37 @@ def test_compute_ppl_on_card_matches_cpu(cuda):
     want = compute_ppl(cpu, pool, num_pairs=4, epsilon=1e-2, seed=1)
     assert got == pytest.approx(want, rel=1e-3)
     assert got > 0.01
+
+
+def test_perceptual_tools_on_card_match_cpu(cuda):
+    """``fit_lins`` and the distortion study's per-pair distances on the
+    card against the CPU at 2 slices of 32², with the shipped encoder
+    artifact: the fitted lins within 1e-3 relative after 50 Adam steps
+    (float32 feature sums in other orders), the distances within 1e-4
+    relative."""
+    from superresolution_aniso_mri_tpu_torch.ops.lpips import \
+        get_lpips_params
+    from superresolution_aniso_mri_tpu_torch.ops.perceptual import \
+        load_enc_perceptual
+    from superresolution_aniso_mri_tpu_torch.tools import (
+        fit_perceptual_head, lpips_gap_study)
+
+    npz = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "weights", "perceptual_enc.npz")
+    data = fit_perceptual_head.build_fit_set(2, 32, device="cpu")
+    w = [fit_perceptual_head.fit_lins(load_enc_perceptual(npz, d), data,
+                                      iters=50)[0] for d in (cuda, "cpu")]
+    assert np.abs(w[0] - w[1]).max() <= 1e-3 * np.abs(w[1]).max()
+    suite = lpips_gap_study.distortion_suite(np.random.RandomState(0))
+    sl = lpips_gap_study.reference_slices(2, 32)[1]
+    dists = lpips_gap_study.distorted(sl, suite)
+    rows = [lpips_gap_study.score_suite(
+        sl, dists, get_lpips_params(device=d), load_enc_perceptual(npz, d),
+        lpips_gap_study.msssim_levels(32), d) for d in (cuda, "cpu")]
+    for k, want in rows[1].items():
+        want = np.asarray(want)
+        assert np.abs(np.asarray(rows[0][k]) - want).max() <= (
+            1e-4 * np.abs(want).max()), k
 
 
 def test_failed_capture_raises_without_eager_fallback(cuda, monkeypatch):

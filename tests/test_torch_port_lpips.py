@@ -303,7 +303,9 @@ def test_missing_enc_artifact_raises_like_jax(tmp_path, monkeypatch):
     monkeypatch.setenv("SR_PERCEPTUAL_ENC", str(tmp_path / "none.npz"))
     with pytest.raises(FileNotFoundError, match="fit_perceptual_head"):
         jp.get_enc_perceptual_params()
-    with pytest.raises(FileNotFoundError, match="fit_perceptual_head"):
+    # the port names its own command, which runs without jax
+    with pytest.raises(FileNotFoundError,
+                       match="torch.cli fit-perceptual-head --exper_dir"):
         tp.get_enc_perceptual_params(device="cpu")
 
 

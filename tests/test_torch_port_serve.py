@@ -349,6 +349,14 @@ def test_port_imports_without_jax():
             "import superresolution_aniso_mri_tpu_torch.cli.entry\n"
             "import superresolution_aniso_mri_tpu_torch.cli.train_loop\n"
             "import superresolution_aniso_mri_tpu_torch.cli.__main__\n"
+            "import superresolution_aniso_mri_tpu_torch.tools.lpips_gap_study\n"
+            "import superresolution_aniso_mri_tpu_torch.tools.fit_perceptual_head\n"
+            "import superresolution_aniso_mri_tpu_torch.tools.convert_lpips_weights\n"
+            "import superresolution_aniso_mri_tpu_torch.data.masi\n"
+            "import superresolution_aniso_mri_tpu_torch.data.acdc_aux\n"
+            "import superresolution_aniso_mri_tpu_torch.evaluate.sr_seg_eval\n"
+            "import superresolution_aniso_mri_tpu_torch.utils.dicom\n"
+            "import superresolution_aniso_mri_tpu_torch.utils.image_misc\n"
             "bad = [m for m in sys.modules if m == "
             "'superresolution_aniso_mri_tpu' or m.startswith("
             "'superresolution_aniso_mri_tpu.')]\n"
@@ -384,4 +392,7 @@ def test_port_sources_import_nothing_of_the_jax_package():
             "data_config.py", "combine_ae_caisr.py", "reconstruction.py",
             "quantitative_comparison.py", "ppl.py", "drivers.py",
             "model_registry.py", "sax_to_lax.py", "seg_metrics.py",
-            "clinical.py"} <= set(scanned)
+            "clinical.py", "masi.py", "acdc_aux.py", "sr_seg_eval.py",
+            "dicom.py", "image_misc.py", "lpips_gap_study.py",
+            "fit_perceptual_head.py",
+            "convert_lpips_weights.py"} <= set(scanned)
