@@ -183,13 +183,33 @@ Phases (any failure ends the run with a non-zero exit):
      VGG16 and lin state dict, its LPIPS equal to the same arrays
      passed directly. s/volume and s/call beside the card; SSIM launches
      counted and each pair held against the plain version.
+ 16. more than one device and the packed decoder (``parallel/``,
+     ``infer/packed_decoder.py``): (a) the bench config's slice axis
+     split over ``[cuda:0, cuda:0]`` (``make_sharded_synthesizer``; 29
+     kept slices padded to 30), linear and lanczos3, float32 and bf16,
+     against the unsharded core, the sharded volume scored (its SSIM
+     pair within ``PARALLEL_SSIM_ATOL`` of the plain version); (b) the
+     volume axis (``make_sharded_batched_synthesizer``, 3 volumes
+     padded to 4), ``create_super_volume(num_devices=count)`` and
+     ``count + 1`` raising; (c) two ranks on cuda:0 over gloo through
+     ``parallel.launch`` (NCCL refuses two ranks on one GPU), each a
+     data-parallel ``Trainer`` on the OASIS recipe at full width with
+     ``--train_latent_interp lanczos3``, ``DP_STEPS`` steps, against the
+     single process on the same global batches and on the batches with
+     their pairs permuted (the float32 reordering noise that bounds the
+     gaps of the loss, the step-1 gradient and θ − θ0), rank 1 writing
+     nothing; (d) a one-rank NCCL group's ``make_sharded_train_step``
+     against ``make_train_step`` and ``train-brain --num_devices 1``;
+     (e) the decode of ``DP_DECODE`` latents, packed against plain,
+     float32 and bf16, medians of 20 CUDA-event times. Its numbers go on
+     the ``parallel`` line.
 The main path (serve linear → score) runs with every kernel launch count
 set to 0 just before it and read just after; so do the train phase's
 path (serve the trained checkpoint → score), each find-best sweep of
 phase 7, phase 8's find-best, phase 9's scoring of the perceptual
 checkpoint and of the baselines, phase 10's scoring of the fitted
-table, phase 11's, 12's, 13's, 14's and 15's scoring paths (every pair each
-scored held against the plain version). The line before the last lists every
+table, phase 11's, 12's, 13's, 14's, 15's and 16's scoring paths (every
+pair each scored held against the plain version). The line before the last lists every
 kernel with its check, launches (``launches``: the main path;
 ``launches_by_path``: every counted path) and times; the last line is
 the device summary.
@@ -328,6 +348,14 @@ ROTO_ARGV = ["-d", "MNISTRoto", "-m", "ae_combined", "-b", "16", "--width",
              "64", "--latent_width", "16", "--latent", "128",
              "--downsample_steps", str(OASIS_DS), "-e", "1",
              "--ex_loss_weight1", "0.001", "--image_mix_loss_func", "mse"]
+
+
+# phase 16: the data-parallel OASIS recipe (lanczos3 training mix) and
+# the sharded serving: 29 kept slices (padded to 30 over two shards),
+# the decode timed on one auto decode_batch chunk of the bench volume
+DP_ARGS = dict(TRAIN_ARGS, train_latent_interp="lanczos3")
+DP_STEPS, DP_KEPT, DP_DECODE = 10, 29, 43
+PARALLEL_SSIM_ATOL = 6e-8
 
 
 def log(msg: str) -> None:
@@ -3290,6 +3318,381 @@ def check_prep(tmp: str, seed: int, card: str, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: data-parallel training and sharded serving (parallel/), the
+# packed decoder
+# ---------------------------------------------------------------------------
+
+def _dp_spec() -> dict:
+    """What phase 16's ranks build (passed to them: a spawned rank
+    imports this module afresh)."""
+    return dict(args=DP_ARGS, hw=HW, slices=HR_SLICES, patch=TRAIN_PATCH,
+                ds=TRAIN_DS, steps=DP_STEPS)
+
+
+def _sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _dp_batches(seed: int, steps: int, device, spec: dict) -> list:
+    """Phase 16's global batches: the OASIS recipe's 16 pairs of 64²
+    crops (phase 5's data) as septets for ``lanczos3``, the same on
+    every rank that builds them."""
+    from superresolution_aniso_mri_tpu_torch.data import (
+        AugmentConfig, TripletSampler, Volume, device_batch)
+
+    hw = spec["hw"]
+    vols = [Volume(image=phantom(seed + 100 + i, spec["slices"], hw, hw),
+                   spacing=np.array([1.0, 1.0, 1.0])) for i in range(4)]
+    sampler = TripletSampler(vols, spec["ds"], "adjacent_plus", pad_size=hw,
+                             seed=seed, latent_taps=6)
+    aug = AugmentConfig(patch_size=spec["patch"], aug_patch_size=hw,
+                        random_crop=False, rot90=False, intensity=False)
+    return [device_batch(sampler.sample_batch(spec["args"]["batch_size"]),
+                         aug, device, latent_taps=6) for _ in range(steps)]
+
+
+def _permuted(batch: dict, perm) -> dict:
+    """``batch`` with its pairs in the order ``perm`` (both halves of a
+    ``[2B]`` leaf): the same step, other float32 reduction orders."""
+    import torch
+
+    b = batch["slice_between"].shape[0]
+    return {k: v[perm] if v.shape[0] == b
+            else torch.cat([v[:b][perm], v[b:][perm]])
+            for k, v in batch.items()}
+
+
+def _record_steps(trainer, batches) -> dict:
+    """``trainer.train`` on each batch: loss_ae per step, the gradient
+    that reaches the optimizer at step 1 (all-reduced on a rank), θ0 and
+    θ after the last step, the mean host ms per step (synchronised)."""
+    tx, seen = trainer.state.tx, {}
+    apply = tx.apply
+
+    def recording(params, grads, state, scalars):
+        if not seen:
+            seen.update({k: g.detach().cpu().numpy()
+                         for k, g in grads.items()})
+        return apply(params, grads, state, scalars)
+
+    theta0 = {k: p.detach().cpu().numpy()
+              for k, p in trainer.state.params().items()}
+    tx.apply = recording
+    losses = []
+    try:
+        _sync(trainer.device)
+        t0 = time.perf_counter()
+        for b in batches:
+            losses.append(trainer.train(b)["loss_ae"])
+        _sync(trainer.device)
+        ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    finally:
+        tx.apply = apply
+    out = {"loss": np.array([float(v) for v in losses]), "ms": np.float64(ms)}
+    for k, p in trainer.state.params().items():
+        out[f"theta0/{k}"] = theta0[k]
+        out[f"theta/{k}"] = p.detach().cpu().numpy()
+        out[f"grad/{k}"] = seen[k]
+    return out
+
+
+def _dp_rank(out_dir: str, seed: int, device: str, spec: dict) -> None:
+    """Phase 16c on one rank: the data-parallel ``Trainer`` on the global
+    batches, its experiment in ``exper_r<rank>`` (only rank 0's may
+    exist afterwards); rank 0 keeps the trajectory."""
+    from superresolution_aniso_mri_tpu_torch.parallel import (process_count,
+                                                              process_index)
+    from superresolution_aniso_mri_tpu_torch.train import Trainer
+
+    rank = process_index()
+    trainer = Trainer(dict(spec["args"], num_devices=process_count(),
+                           output_dir=os.path.join(out_dir,
+                                                   f"exper_r{rank}"),
+                           seed=seed, epochs=1, epoch_threshold=0),
+                      device=device)
+    batches = _dp_batches(seed, spec["steps"], trainer.device, spec)
+    trainer.prepare_run()
+    rec = _record_steps(trainer, batches)
+    trainer.validate(batches[0])
+    trainer.show_loss_on_tensorboard("train")
+    trainer.show_loss_on_tensorboard("test")
+    trainer.end_epoch_processing()
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "dp.npz"), **rec)
+
+
+def _nccl_rank(out_dir: str, seed: int, device: str, spec: dict) -> None:
+    """Phase 16d on a one-rank NCCL group: one ``make_sharded_train_step``
+    step against ``make_train_step`` from the same weights and batch."""
+    from superresolution_aniso_mri_tpu_torch.parallel import (
+        create_mesh, make_sharded_train_step)
+    from superresolution_aniso_mri_tpu_torch.train import Trainer
+
+    import torch
+
+    # the same convolution algorithms in both runs: cuDNN's default ones
+    # differ between two runs of one step by up to 1.5e-6 of a leaf's
+    # largest gradient on the card (measured), more than this check's
+    # limit
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    batch = _dp_batches(seed, 1, create_mesh()[0], spec)
+    recs = []
+    for sharded in (True, False):
+        trainer = Trainer(dict(spec["args"], seed=seed), device=device)
+        if sharded:
+            trainer.train_step = make_sharded_train_step(
+                trainer.loss_config, None, create_mesh())
+        recs.append(_record_steps(trainer, batch))
+    np.savez(os.path.join(out_dir, "nccl.npz"),
+             **{f"{tag}/{k}": v for tag, rec in zip(("sharded", "single"),
+                                                     recs)
+                for k, v in rec.items()})
+
+
+def _leaf_gap(got: dict, want: dict, prefix: str, mask=None) -> float:
+    """The largest over the leaves of max |got − want| / max |want|
+    (``mask(leaf)``: the entries to compare)."""
+    worst = 0.0
+    for k in want:
+        if not k.startswith(prefix):
+            continue
+        a, b = got[k], want[k]
+        sel = np.ones(b.shape, bool) if mask is None else mask(k[len(prefix):])
+        if sel.any():
+            worst = max(worst, float(np.abs(a - b)[sel].max()
+                                     / max(np.abs(b).max(), 1e-30)))
+    return worst
+
+
+def check_parallel(seed: int, card: str, dev) -> dict:
+    """Phase 16 (see the module docstring): the numbers of the
+    ``parallel`` line and the SSIM launches of the sharded serve →
+    score path."""
+    import tempfile
+
+    import torch
+
+    from superresolution_aniso_mri_tpu_torch import parallel
+    from superresolution_aniso_mri_tpu_torch.cli import entry
+    from superresolution_aniso_mri_tpu_torch.device import f32_exact
+    from superresolution_aniso_mri_tpu_torch.evaluate import (
+        compute_volume_metrics)
+    from superresolution_aniso_mri_tpu_torch.infer import (
+        ServingModel, create_super_volume)
+    from superresolution_aniso_mri_tpu_torch.infer import super_volume as sv
+    from superresolution_aniso_mri_tpu_torch.infer.packed_decoder import (
+        make_packed_decoder)
+    from superresolution_aniso_mri_tpu_torch.models import AEConfig
+    from superresolution_aniso_mri_tpu_torch.train import Trainer
+
+    t_phase = time.perf_counter()
+    out: dict = {"launches": {}, "kernel_err": 0.0}
+    mesh = parallel.create_mesh([dev, dev])
+    alphas = np.linspace(0, 1, DS + 1)[1:-1].astype(np.float32)
+    alphas_t = torch.from_numpy(alphas).to(dev)
+    hr = phantom(seed + 16, s=(DP_KEPT - 1) * DS + 1)
+    f32 = ServingModel(AEConfig(**BENCH_CFG, compute_dtype="float32"),
+                       device=dev,
+                       generator=torch.Generator().manual_seed(seed + 16))
+    models = {"float32": f32, "bfloat16": ServingModel(
+        AEConfig(**BENCH_CFG, compute_dtype="bfloat16"),
+        f32._ae_model().state_dict(), device=dev)}
+
+    # a. the slice axis over [cuda:0, cuda:0]: 29 kept slices padded to 30
+    for dtype, model in models.items():
+        for interp in ("linear", "lanczos3"):
+            kept = sv._pad_kept(hr[::DS, None], DP_KEPT + 1, interp)
+            kept_t = torch.from_numpy(kept).to(dev)
+            got = parallel.make_sharded_synthesizer(
+                model._ae_model(), mesh, decode_batch=32,
+                latent_interp=interp)(kept_t, alphas_t)
+            want = sv.make_synthesis_core(model._ae_model(), 32,
+                                          latent_interp=interp)(kept_t,
+                                                                alphas_t)
+            gap = max(float((got[k][:DP_KEPT - (k == "interp")]
+                             - want[k][:DP_KEPT - (k == "interp")])
+                            .abs().max()) for k in ("recon", "interp"))
+            out[f"slice_sharded_{interp}_{dtype}_max_abs_diff"] = gap
+            limit = 1e-4 if dtype == "float32" else 1.0 / 64
+            if not gap <= limit:
+                raise AssertionError(f"slice-sharded serving ({interp}, "
+                                     f"{dtype}) differs by {gap}")
+            if dtype == "float32" and interp == "lanczos3":
+                vol = sv.interleave_volume(got["recon"][:DP_KEPT],
+                                           got["interp"][:DP_KEPT - 1])
+                vol = vol.clamp(0, 1)[:, 0].cpu().numpy()
+
+                def score(vol=vol):
+                    return compute_volume_metrics(hr, vol,
+                                                  downsample_steps=DS)
+                scores, n, err, _ = _counted_scoring(score, "phase 16 sharded")
+                _finite(scores, "phase 16 sharded scores")
+                if not err <= PARALLEL_SSIM_ATOL:
+                    raise AssertionError(f"phase 16 SSIM pair: {err}")
+                out["launches"]["parallel_sharded_serve_score"] = n
+                out["kernel_err"] = max(out["kernel_err"], err)
+                out["sharded_scores"] = scores
+    log(f"parallel a: slice-sharded vs unsharded [{card}]: " + json.dumps(
+        {k: v for k, v in out.items() if k.startswith("slice_")}))
+
+    # b. the volume axis: 3 volumes, the last repeated to 4
+    model = models["float32"]
+    kept = np.stack([sv._pad_kept(phantom(seed + 17 + i)[::DS, None], 30,
+                                  "linear") for i in range(3)])
+    stack = torch.from_numpy(np.concatenate([kept, kept[-1:]])).to(dev)
+    got = parallel.make_sharded_batched_synthesizer(
+        model._ae_model(), mesh, decode_batch=32)(stack, alphas_t)
+    want = sv.make_batched_synthesizer(model._ae_model(), 32)(stack,
+                                                              alphas_t)
+    out["volume_sharded_max_abs_diff"] = float((got[:3] - want[:3])
+                                               .abs().max())
+    n_dev = torch.cuda.device_count() if dev.type == "cuda" else 2
+    pub = create_super_volume(model, hr, alpha_range=alphas,
+                              downsample_steps=DS, num_devices=n_dev,
+                              generate_inbetween_slices=True)
+    if not np.isfinite(pub["upsampled_image"]).all():
+        raise AssertionError("create_super_volume(num_devices) non-finite")
+    if dev.type == "cuda":
+        try:
+            create_super_volume(model, hr, downsample_steps=DS,
+                                num_devices=n_dev + 1)
+        except ValueError as exc:
+            log(f"parallel b: num_devices={n_dev + 1} raises: {exc}")
+        else:
+            raise AssertionError(f"num_devices={n_dev + 1} did not raise")
+    if not out["volume_sharded_max_abs_diff"] <= 1e-4:
+        raise AssertionError("volume-sharded serving differs: "
+                             f"{out['volume_sharded_max_abs_diff']}")
+    log(f"parallel b: volume-sharded (3 → 4 volumes) vs unsharded "
+        f"max_abs_diff={out['volume_sharded_max_abs_diff']:.3e}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # c. two ranks on cuda:0 over gloo, through the CLI's launcher
+        t0 = time.perf_counter()
+        parallel.launch(_dp_rank, (tmp, seed, dev.type, _dp_spec()), mesh,
+                        "gloo", timeout_s=300, join_timeout_s=600)
+        out["dp_launch_s"] = time.perf_counter() - t0
+        with np.load(os.path.join(tmp, "dp.npz")) as f:
+            dp = dict(f)
+        if os.path.exists(os.path.join(tmp, "exper_r1")):
+            raise AssertionError("rank 1 wrote into its experiment "
+                                 "directory")
+        if "last.models" not in os.listdir(os.path.join(tmp, "exper_r0",
+                                                        "models")):
+            raise AssertionError("rank 0 wrote no last.models")
+        # the single-process trajectory on the same global batches, and
+        # on the same batches with their pairs permuted: the float32
+        # reordering noise of this network on the card, the scale of the
+        # 2-rank run's gaps (its own halves sum in another order)
+        batches = _dp_batches(seed, DP_STEPS, dev, _dp_spec())
+        perm = torch.randperm(DP_ARGS["batch_size"],
+                              generator=torch.Generator().manual_seed(seed))
+        single, shuffled = (
+            _record_steps(Trainer(dict(DP_ARGS, seed=seed), device=dev), bs)
+            for bs in (batches, [_permuted(b, perm.to(dev))
+                                 for b in batches]))
+        grad_mag = {k[len("grad/"):]: np.abs(v) >= 1e-3 * np.abs(v).max()
+                    for k, v in single.items() if k.startswith("grad/")}
+
+        def gaps(run: dict) -> dict:
+            steps = {k: run[k] - run["theta0/" + k[len("theta/"):]]
+                     for k in run if k.startswith("theta/")}
+            steps_1 = {k: single[k] - single["theta0/" + k[len("theta/"):]]
+                       for k in single if k.startswith("theta/")}
+            return {"loss": float(np.max(np.abs(run["loss"] - single["loss"])
+                                         / np.abs(single["loss"]))),
+                    "grad1": _leaf_gap(run, single, "grad/"),
+                    "theta10": _leaf_gap(steps, steps_1, "theta/"),
+                    "theta10_resolved": _leaf_gap(steps, steps_1, "theta/",
+                                                  grad_mag.get)}
+
+        dp_gap, noise = gaps(dp), gaps(shuffled)
+        out.update(
+            dp_loss=dp["loss"].tolist(), single_loss=single["loss"].tolist(),
+            **{f"dp_{k}_max_rel_gap": v for k, v in dp_gap.items()},
+            **{f"permuted_{k}_max_rel_gap": v for k, v in noise.items()},
+            dp_ms_per_step_two_ranks_one_card_gloo=float(dp["ms"]),
+            single_ms_per_step=float(single["ms"]))
+        log(f"parallel c: 2 ranks on cuda:0 (gloo) vs 1 process, "
+            f"{DP_STEPS} steps [{card}]: max rel gaps {json.dumps(dp_gap)}; "
+            f"the single process on the permuted pairs "
+            f"{json.dumps(noise)}; losses {dp['loss'].round(6).tolist()}")
+        # θ after 10 Adam steps: an entry near a zero gradient moves by
+        # ±lr a step with the sign of that noise, hence the wider margin
+        bad = [k for k in dp_gap if not dp_gap[k] <= 3 * noise[k] + (
+            0.05 if k.startswith("theta") else 1e-6)]
+        if not dp_gap["grad1"] <= 1e-2:
+            bad.append("grad1")
+        if bad:
+            raise AssertionError(f"the 2-rank trajectory differs from the "
+                                 f"single-process one beyond the reordering "
+                                 f"noise: {bad}")
+
+        # d. a one-rank NCCL group; the CLI's --num_devices 1 path
+        parallel.launch(_nccl_rank, (tmp, seed, dev.type, _dp_spec()),
+                        mesh[:1], "nccl" if dev.type == "cuda" else "gloo",
+                        timeout_s=300, join_timeout_s=300)
+        with np.load(os.path.join(tmp, "nccl.npz")) as f:
+            nc = dict(f)
+        sh = {k[len("sharded/"):]: v for k, v in nc.items()
+              if k.startswith("sharded/")}
+        sg = {k[len("single/"):]: v for k, v in nc.items()
+              if k.startswith("single/")}
+        out["nccl_one_rank_grad_max_rel_gap"] = _leaf_gap(sh, sg, "grad/")
+        out["nccl_one_rank_loss_rel_gap"] = float(
+            abs(sh["loss"][0] - sg["loss"][0]) / abs(sg["loss"][0]))
+        log(f"parallel d: one-rank NCCL sharded step vs make_train_step: "
+            f"grad {out['nccl_one_rank_grad_max_rel_gap']:.3e}, loss "
+            f"{out['nccl_one_rank_loss_rel_gap']:.3e}")
+        if not (out["nccl_one_rank_grad_max_rel_gap"] <= 1e-6
+                and out["nccl_one_rank_loss_rel_gap"] <= 1e-6):
+            raise AssertionError("the one-rank NCCL step differs")
+        tr = entry.train_brain(_cli_train_argv(
+            tmp, "nd1", SMALL_CFG, 1, ("--num_devices", "1",
+                                       "--downsample_steps", "2")))
+        if tr.epoch != 1 or tr.mesh is not None:
+            raise AssertionError("train-brain --num_devices 1")
+
+    # e. packed against unpacked decode at the bench config
+    z = None
+    for dtype, model in models.items():
+        ae = model._ae_model()
+        with torch.inference_mode(), f32_exact():
+            if z is None:
+                x = torch.from_numpy(hr[:DP_DECODE, None].copy()).to(dev)
+                z = ae.encode(x)
+            packed = make_packed_decoder(ae)
+            times = {"plain": [], "packed": []}
+            for i in range(21):
+                for name, fn in (("plain", ae.decode), ("packed", packed)):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    y = fn(z)
+                    end.record()
+                    end.synchronize()
+                    if i:
+                        times[name].append(start.elapsed_time(end))
+            gap = float((packed(z) - ae.decode(z)).abs().max())
+        out[f"packed_{dtype}_max_abs_diff"] = gap
+        out[f"decode_{dtype}_ms"] = float(np.median(times["plain"]))
+        out[f"packed_decode_{dtype}_ms"] = float(np.median(times["packed"]))
+        del y
+        if not gap <= (1e-4 if dtype == "float32" else 1.0 / 64):
+            raise AssertionError(f"packed decode ({dtype}) differs: {gap}")
+    log(f"parallel e: decode of {DP_DECODE} latents at the bench config "
+        f"(medians of 20) [{card}]: " + json.dumps(
+            {k: v for k, v in out.items() if "decode" in k or "packed" in k}))
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"parallel: phase 16 {out['phase_s']:.1f} s")
+    return out
+
+
 def _kernel_kind(name: str) -> str:
     """Bucket of a device event by its kernel name."""
     low = name.lower()
@@ -3554,8 +3957,12 @@ def main() -> int:
         evaluation = check_eval(tmp, args.seed, card, dev)
         # ---- 15. dataset preparation, SR segmentation, perceptual tools
         prep = check_prep(tmp, args.seed, card, dev)
+    # ---- 16. data-parallel training, sharded serving, packed decode ----
+    par = check_parallel(args.seed, card, dev)
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"parallel": {k: v for k, v in par.items()
+                                   if k != "launches"}}), flush=True)
     log(card)  # name and power limit, as nvidia-smi prints them
     print(json.dumps({"kernels": [{
         "name": "ssim_slice", "route": "cuda",
@@ -3577,7 +3984,8 @@ def main() -> int:
             **{f"families_{k}": v
                for k, v in families["launches"].items()},
             **labeled["launches"], **alpha["launches"],
-            **evaluation["launches"], **prep["launches"]},
+            **evaluation["launches"], **prep["launches"],
+            **par["launches"]},
         "max_abs_err": max(kcheck["max_abs_err"],
                            disk["find_best_kernel_err"],
                            percept["percept_kernel_err"],
@@ -3586,7 +3994,7 @@ def main() -> int:
                            labeled["kernel_err"],
                            alpha["kernel_err"],
                            evaluation["kernel_err"],
-                           prep["kernel_err"]), "ok": True,
+                           prep["kernel_err"], par["kernel_err"]), "ok": True,
         "ms": kernel_ms, "ms_cold": kernel_cold_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "bound_share": bound_ms / kernel_ms,

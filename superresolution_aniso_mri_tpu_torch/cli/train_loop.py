@@ -38,8 +38,20 @@ alpha families' probes read and the other families ignore.
 ``--mnist_path`` / ``$SR_MNIST_PATH``, with ``alpha_features`` on the
 rotation grid) instead of the MNIST3D stacks.
 
-Not ported, and raising before anything is written: multi-host runs
-(item 11) and what ``Trainer`` and ``get_datasets`` refuse.
+``--num_devices N`` (N > 1) trains data-parallel, one rank per device
+(``parallel.launch``): on one host the loop starts N ranks itself, one
+per ``cuda:i`` over NCCL (N ranks on the CPU over gloo with ``--device
+cpu``). Across hosts, ``--num_processes P --coordinator_address h:p
+--process_id i`` (or ``SR_*``, ``parallel.initialize_distributed``) make
+each host start N/P ranks with global ranks ``i·N/P + local``, meeting at
+``h:p``; ``--num_devices`` is the global count, as JAX's mesh size.
+Every rank draws the same global batches from the same seeds and steps
+on its rows; rank 0 alone prints, writes images and previews and saves
+(``Trainer``). The launching process returns an eval-mode trainer of
+the ``last.models`` that rank 0 wrote. JAX's ValueErrors (``--num_devices``
+with ``--steps_per_dispatch > 1``, a batch size N does not divide, more
+devices than attached) are raised before a rank starts or anything is
+written.
 """
 from __future__ import annotations
 
@@ -56,7 +68,10 @@ from ..data import AugmentConfig, TripletSampler, device_batch
 from ..data.datasets import get_datasets
 from ..data.device_cache import maybe_device_cache
 from ..data.synthetic import RotoTripletSampler
-from ..train import Trainer
+from ..parallel.distributed import (cluster, initialize_distributed,
+                                    is_main_process, is_rank, launch)
+from ..parallel.mesh import local_mesh
+from ..train import Trainer, get_trainer
 from ..utils.grids import generate_recon_grid, save_image_grid
 from ..utils.profiling import trace
 
@@ -117,11 +132,10 @@ def epoch_generator(seed: int, epoch: int) -> torch.Generator:
         int(state.generate_state(1, np.uint64)[0]))
 
 
-def _refuse_unported(merged: Dict) -> None:
-    """Raise for the options of the JAX loop the port does not run, for
-    ``--get_masks`` on a dataset without labels and for MNISTRoto with a
-    multi-tap ``--train_latent_interp`` (JAX raises the same ValueErrors
-    once the experiment directory is written)."""
+def _check_options(merged: Dict) -> None:
+    """Raise JAX's ValueErrors for ``--get_masks`` on a dataset without
+    labels and for MNISTRoto with a multi-tap ``--train_latent_interp``
+    (JAX raises them once the experiment directory is written)."""
     if merged.get("get_masks") and merged["dataset"] != "ACDCLBL":
         raise ValueError(
             f"--get_masks requires labeled volumes (the loss masks are "
@@ -133,10 +147,6 @@ def _refuse_unported(merged: Dict) -> None:
             f"--train_latent_interp {tli} is not supported for "
             "MNISTRoto (the roto sampler generates rotation "
             "triplets on the fly, not volume quintets/septets)")
-    if int(merged.get("num_processes") or 1) > 1 \
-            or merged.get("coordinator_address"):
-        raise NotImplementedError(
-            "multi-host training is not ported yet (ROADMAP item 11)")
 
 
 def _generate_volume_previews(trainer, val_vols, merged: Dict,
@@ -163,15 +173,48 @@ def _generate_volume_previews(trainer, val_vols, merged: Dict,
             trainer.dir_images, f"synth_vol_{pid}_e{epoch:03d}.png"))
 
 
+def _launch_ranks(args_dict: Dict, merged: Dict, verbose: bool) -> Trainer:
+    """Start this host's ranks of a ``--num_devices`` run (see the
+    module docstring) and wait for them; returns an eval-mode trainer of
+    the ``last.models`` rank 0 wrote."""
+    n_dev = int(merged.get("num_devices") or 1)
+    address, hosts, host = cluster()
+    if n_dev % hosts:
+        raise ValueError(f"--num_devices {n_dev} must be a multiple of "
+                         f"--num_processes {hosts}")
+    per_host = n_dev // hosts
+    device = merged.get("device") or "cuda"
+    if int(merged.get("steps_per_dispatch", 1) or 1) > 1:
+        raise ValueError("steps_per_dispatch > 1 is not supported with "
+                         "num_devices > 1")
+    mesh = local_mesh(per_host, device)
+    if int(merged["batch_size"]) % n_dev:
+        raise ValueError(f"batch pairs ({merged['batch_size']}) must be "
+                         f"divisible by num_devices ({n_dev})")
+    launch(run_training, (args_dict, verbose), mesh,
+           init_method=f"tcp://{address}" if address else None,
+           rank_offset=host * per_host, world_size=n_dev)
+    return get_trainer(merged["output_dir"], "last", eval_mode=True,
+                       device=device)
+
+
 def run_training(args_dict: Dict, verbose: bool = True) -> Trainer:
     """Train the experiment that ``args_dict`` (``parse_args``' dict)
     describes on its ``device`` (``cuda`` unless it says ``cpu``), into
-    its ``output_dir``. Returns the Trainer."""
+    its ``output_dir``. Returns the Trainer (a launching process: see
+    the module docstring)."""
+    # multi-host configuration first, as JAX joins its cluster before
+    # any device query
+    initialize_distributed(args_dict)
     rehydrate_resume_loss_config(args_dict)
     net_cfg = NetworkConfig(args_dict["model"], args_dict["dataset"],
                             args_dict.get("ae_class", "VanillaACAI"))
     merged = merge_args_architecture(args_dict, net_cfg.architecture)
-    _refuse_unported(merged)
+    _check_options(merged)
+    if int(merged.get("num_devices") or 1) > 1 and not is_rank():
+        return _launch_ranks(args_dict, merged, verbose)
+    main_proc = is_main_process()
+    verbose = verbose and main_proc
 
     trainer = Trainer(merged, device=merged.get("device"))
     trainer.prepare_run()
@@ -259,6 +302,9 @@ def run_training(args_dict: Dict, verbose: bool = True) -> Trainer:
     def _beat():
         if watchdog is not None:
             watchdog.beat()
+            # re-arm after a pause across rank 0's epoch end (no-op when
+            # armed)
+            watchdog.resume()
 
     profile_dir = merged.get("profile_dir")
     start_epoch = trainer.epoch
@@ -315,7 +361,7 @@ def run_training(args_dict: Dict, verbose: bool = True) -> Trainer:
 
             # image dumps (reference: base_trainer.py:395-420)
             dump_every = int(merged.get("image_dump_interval", 1) or 0)
-            if trainer.test_predictions and dump_every > 0 \
+            if main_proc and trainer.test_predictions and dump_every > 0 \
                     and epoch % dump_every == 0:
                 grid = generate_recon_grid(
                     val_batch["image"][:, 0].cpu().numpy(),
@@ -326,13 +372,19 @@ def run_training(args_dict: Dict, verbose: bool = True) -> Trainer:
                 trainer.log_tb_image("val/reconstructions", grid)
                 _beat()
 
-            _generate_volume_previews(trainer, val_vols, merged, epoch)
-            _beat()
+            if main_proc:
+                _generate_volume_previews(trainer, val_vols, merged, epoch)
+                _beat()
             if merged.get("log_tensorboard") and epoch % 10 == 0:
                 trainer.log_tb_histograms()
             trainer.reset_losses()
             trainer.end_epoch_processing()
             _beat()
+            if not main_proc and watchdog is not None:
+                # the next epoch's first collective waits for rank 0's
+                # previews and checkpoints: its progress, not a stall here
+                # (rank 0's own watchdog covers a hung device)
+                watchdog.pause()
     except KeyboardInterrupt:
         if watchdog is not None:
             watchdog.stop()

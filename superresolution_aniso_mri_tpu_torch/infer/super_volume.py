@@ -38,8 +38,15 @@ the kept slices through ``trainer.predict`` in chunks of the decode
 budget, unless ``use_original``. A MultiChannelAE combo keeps the SR
 model's decoded labels and the primary's ``argmax(soft_probs)``.
 
-Not ported in this slice (each raises): ``num_devices > 1`` and the
-packed decoder (``packed=True``).
+``num_devices`` N > 1 shards over the first N devices of the
+trainer's device type (N shards of the CPU, or ``cuda:0 … cuda:N-1``,
+ValueError when fewer are attached): ``create_super_volume`` the kept
+slices (the kept count padded to a multiple of N, edge-replicated for
+multi-tap schemes; the decode budget per device ``max(32, decode_batch
+// N)``), ``create_super_volumes`` the volumes (chunks of a multiple of
+N, padded with the last volume; a lone shape goes the sharded single
+path), as JAX's ``:656-681,926-1022``. ``packed=True`` decodes through
+``infer/packed_decoder.py``.
 """
 from __future__ import annotations
 
@@ -56,12 +63,12 @@ from ..ops.losses import (LANCZOS3_OFFSETS, catmull_rom_weights,
 from .latent_taps import (fitted_tap_weights, fitted_table_path,
                           is_fitted_mode, latent_interp_cache_token,
                           load_latent_taps)
+from .packed_decoder import make_packed_decoder, packable
 
 LATENT_INTERP_MODES = ("linear", "cubic", "lanczos3", "fitted")
 _LATENT_TAP_OFFSETS = {"cubic": (-1, 0, 1, 2), "lanczos3": LANCZOS3_OFFSETS}
 READBACK_DTYPES = (None, "float32", "bfloat16")
 
-_NOT_PORTED = "not ported to the PyTorch package yet (ROADMAP.md, {item})"
 
 
 def _chunked_call_pervol(fn, x: torch.Tensor,
@@ -192,6 +199,117 @@ def interleave_volume(recon: torch.Tensor,
     return torch.cat([body, recon[..., -1:, :, :, :]], dim=-4)
 
 
+class SynthesisStages:
+    """The stages of the synthesis core for one model: ``encode`` the
+    kept stack, ``mix`` the latents of a range of pairs, ``decode``
+    reconstructions and interpolants, ``finish`` (interleave, clamp).
+    The sharded synthesizer (``parallel.mesh``) runs them per device."""
+
+    def __init__(self, model, decode_batch: Optional[int] = None,
+                 packed: bool = False, latent_interp: str = "linear"):
+        self.model = model
+        self.decode_batch = decode_batch
+        self.cfg = model.config
+        self._encode = latent_encoder(model)
+        self._decode = (make_packed_decoder(model)
+                        if packed and packable(model)
+                        else latent_decoder(model))
+        self.decodes_labels = isinstance(model, MultiChannelAE)
+        if is_fitted_mode(latent_interp):
+            table = load_latent_taps(fitted_table_path(latent_interp))
+            self.tap_offsets = tuple(int(o) for o in table["offsets"])
+            self.tap_weight_fn = partial(fitted_tap_weights, table["alphas"],
+                                         table["weights"])
+        elif latent_interp in _LATENT_TAP_OFFSETS:
+            self.tap_offsets = _LATENT_TAP_OFFSETS[latent_interp]
+            self.tap_weight_fn = partial(latent_tap_weights, latent_interp)
+        elif latent_interp == "linear":
+            self.tap_offsets = self.tap_weight_fn = None
+        else:
+            raise ValueError(f"latent_interp must be one of "
+                             f"{LATENT_INTERP_MODES} (fitted as "
+                             f"'fitted:<table path>'), got {latent_interp!r}")
+
+    def _pads(self, h: int, w: int):
+        div = 2 ** self.cfg.scales
+        return (-h) % div, (-w) % div
+
+    def encode(self, kept: torch.Tensor) -> torch.Tensor:
+        """[B, K, C, H, W] → latents [B, K, ...] in the compute dtype (an
+        in-plane size not divisible by the encoder's total stride is
+        reflect-padded; ``decode`` crops back)."""
+        b, k, _, h, w = kept.shape
+        check_vae_size(self.model, h, w)
+        ph, pw = self._pads(h, w)
+        if ph or pw:
+            flat = torch.nn.functional.pad(kept.flatten(0, 1),
+                                           (0, pw, 0, ph), mode="reflect")
+            kept = flat.unflatten(0, (b, k))
+        # the latent carries the compute dtype through the mix
+        return _chunked_call_pervol(self._encode, kept,
+                                    self.decode_batch).to(self.cfg.dtype)
+
+    def mix(self, z: torch.Tensor, alphas: torch.Tensor, lo: int,
+            hi: int) -> torch.Tensor:
+        """The mixed latents [B, hi - lo, A, ...] of pairs ``lo … hi-1``
+        of the whole stack ``z`` [B, K, ...] (taps clamped to [0, K-1])."""
+        b, k = z.shape[0], z.shape[1]
+        a_n = alphas.shape[0]
+        # [1, 1, A, 1, ...] over the latent's own axes ([C, H, W] or
+        # VAE2's flat [D])
+        bcast = (1, 1, a_n) + (1,) * (z.ndim - 2)
+        if self.tap_offsets is None:
+            a = alphas.to(z.dtype).view(bcast)
+            one = torch.ones((), dtype=z.dtype, device=z.device)
+            return (a * z[:, lo + 1:hi + 1, None]
+                    + (one - a) * z[:, lo:hi, None])
+        # weights in float32, then the mix in the latent's dtype
+        wts = self.tap_weight_fn(alphas).to(z.dtype)        # [A, n_taps]
+        pair = torch.arange(lo, hi, device=z.device)
+        z_mix = torch.zeros((b, hi - lo, a_n) + z.shape[2:], dtype=z.dtype,
+                            device=z.device)
+        for ti, off in enumerate(self.tap_offsets):
+            tap = z.index_select(1, (pair + off).clamp(0, k - 1))
+            z_mix = z_mix + wts[:, ti].view(bcast) * tap[:, :, None]
+        return z_mix
+
+    def decode(self, kept: torch.Tensor, z: torch.Tensor,
+               z_mix: torch.Tensor, use_original: bool
+               ) -> Dict[str, torch.Tensor]:
+        """{'recon' [B, K, ...], 'interp' [B, P, A, ...]}: the decoded
+        ``z`` (or, with ``use_original``, ``kept`` itself: a
+        MultiChannelAE's kept planes, the input labels verbatim) and the
+        decoded ``z_mix`` [B, P, A, ...], as one batch."""
+        k, k1, a_n = z.shape[1], z_mix.shape[1], z_mix.shape[2]
+        z_flat = z_mix.flatten(1, 2)                       # [B, P*A, ...]
+        if use_original:
+            dec = _chunked_call_pervol(self._decode, z_flat,
+                                       self.decode_batch)
+            recon = kept
+            interp = dec.unflatten(1, (k1, a_n))
+        else:
+            dec = _chunked_call_pervol(self._decode,
+                                       torch.cat([z, z_flat], dim=1),
+                                       self.decode_batch)
+            recon = dec[:, :k]
+            interp = dec[:, k:].unflatten(1, (k1, a_n))
+        h, w = kept.shape[3], kept.shape[4]
+        if any(self._pads(h, w)):
+            recon = recon[..., :h, :w]
+            interp = interp[..., :h, :w]
+        return {"recon": recon, "interp": interp}
+
+    def finish(self, out: Dict[str, torch.Tensor], interleave: bool,
+               single: bool) -> Dict[str, torch.Tensor]:
+        if interleave:
+            out["volume"] = clip_with_label_channel(
+                interleave_volume(out["recon"], out["interp"]),
+                self.decodes_labels)
+        if single:
+            out = {key: val[0] for key, val in out.items()}
+        return out
+
+
 def make_synthesis_core(model, decode_batch: Optional[int] = None,
                         packed: bool = False,
                         latent_interp: str = "linear"):
@@ -199,113 +317,60 @@ def make_synthesis_core(model, decode_batch: Optional[int] = None,
     interleave) → {'recon', 'interp'[, 'volume']}, with a leading volume
     axis on every output when the input had one.
 
+    ``packed=True`` decodes through ``infer/packed_decoder.py`` (every
+    nearest 2x upsample folded into the following conv) when the model
+    is ``packable``, else through the plain decoder; off by default, as
+    in JAX.
+
     Multi-tap schemes read z[clip(pair + offset, 0, K-1)]: callers that
     pad the kept stack must edge-replicate (create_super_volume does)."""
-    if packed:
-        raise NotImplementedError(
-            "packed=True: " + _NOT_PORTED.format(item="A11"))
-    cfg = model.config
-    encode, decode = latent_encoder(model), latent_decoder(model)
-    decodes_labels = isinstance(model, MultiChannelAE)
-    if is_fitted_mode(latent_interp):
-        table = load_latent_taps(fitted_table_path(latent_interp))
-        tap_offsets = tuple(int(o) for o in table["offsets"])
-        tap_weight_fn = partial(fitted_tap_weights, table["alphas"],
-                                table["weights"])
-    elif latent_interp in _LATENT_TAP_OFFSETS:
-        tap_offsets = _LATENT_TAP_OFFSETS[latent_interp]
-        tap_weight_fn = partial(latent_tap_weights, latent_interp)
-    elif latent_interp == "linear":
-        tap_offsets = tap_weight_fn = None
-    else:
-        raise ValueError(f"latent_interp must be one of "
-                         f"{LATENT_INTERP_MODES} (fitted as "
-                         f"'fitted:<table path>'), got {latent_interp!r}")
+    stages = SynthesisStages(model, decode_batch, packed, latent_interp)
 
     @torch.inference_mode()
     def core(kept: torch.Tensor, alphas: torch.Tensor,
              use_original: bool = False,
              interleave: bool = False) -> Dict[str, torch.Tensor]:
         with f32_exact():
-            return _core(kept, alphas, use_original, interleave)
-
-    def _core(kept, alphas, use_original, interleave):
-        single = kept.ndim == 4
-        if single:
-            kept = kept[None]
-        b, k = kept.shape[0], kept.shape[1]
-
-        # in-plane sizes not divisible by the encoder's total stride
-        # come back smaller from the decoder: reflect-pad, crop back
-        h, w = kept.shape[3], kept.shape[4]
-        check_vae_size(model, h, w)
-        div = 2 ** cfg.scales
-        ph, pw = (-h) % div, (-w) % div
-        if ph or pw:
-            flat = torch.nn.functional.pad(kept.flatten(0, 1), (0, pw, 0, ph),
-                                           mode="reflect")
-            kept = flat.unflatten(0, (b, k))
-
-        z = _chunked_call_pervol(encode, kept, decode_batch)
-        # the latent carries the compute dtype through the mix
-        z = z.to(cfg.dtype)
-        a_n = alphas.shape[0]
-        # [1, 1, A, 1, ...] over the latent's own axes ([C, H, W] or
-        # VAE2's flat [D])
-        bcast = (1, 1, a_n) + (1,) * (z.ndim - 2)
-        if tap_offsets is not None:
-            # weights in float32, then the mix in the latent's dtype
-            wts = tap_weight_fn(alphas).to(z.dtype)       # [A, n_taps]
-            pair = torch.arange(k - 1, device=z.device)
-            z_mix = torch.zeros((b, k - 1, a_n) + z.shape[2:], dtype=z.dtype,
-                                device=z.device)
-            for ti, off in enumerate(tap_offsets):
-                tap = z.index_select(1, (pair + off).clamp(0, k - 1))
-                z_mix = z_mix + wts[:, ti].view(bcast) * tap[:, :, None]
-        else:
-            a = alphas.to(z.dtype).view(bcast)
-            one = torch.ones((), dtype=z.dtype, device=z.device)
-            z_mix = a * z[:, 1:, None] + (one - a) * z[:, :-1, None]
-        k1 = k - 1
-        z_flat = z_mix.flatten(1, 2)                       # [B, k1*A, ...]
-        if use_original:
-            # MultiChannelAE: the kept (image, label) planes, the input
-            # labels verbatim
-            dec = _chunked_call_pervol(decode, z_flat, decode_batch)
-            recon = kept
-            interp = dec.unflatten(1, (k1, a_n))
-        else:
-            dec = _chunked_call_pervol(decode, torch.cat([z, z_flat], dim=1),
-                                       decode_batch)
-            recon = dec[:, :k]
-            interp = dec[:, k:].unflatten(1, (k1, a_n))
-        if ph or pw:
-            recon = recon[..., :h, :w]
-            interp = interp[..., :h, :w]
-        out = {"recon": recon, "interp": interp}
-        if interleave:
-            out["volume"] = clip_with_label_channel(
-                interleave_volume(recon, interp), decodes_labels)
-        if single:
-            out = {key: val[0] for key, val in out.items()}
-        return out
+            single = kept.ndim == 4
+            if single:
+                kept = kept[None]
+            z = stages.encode(kept)
+            out = stages.decode(kept, z,
+                                stages.mix(z, alphas, 0, kept.shape[1] - 1),
+                                use_original)
+            return stages.finish(out, interleave, single)
 
     return core
 
 
 def _get_core(trainer, decode_batch: Optional[int], latent_interp: str,
-              model=None):
+              model=None, num_devices: int = 1, batched: bool = False):
     """The synthesis core for ``model`` (default ``trainer``'s
     autoencoder; the combo passes its SR model), cached on the trainer
-    per (model, decode_batch, latent_interp table version): the key
-    holds the module itself, so an SR model never gets the autoencoder's
-    core, nor a later SR model an earlier one's."""
+    per (model, decode_batch, latent_interp table version, mesh): the
+    key holds the module itself, so an SR model never gets the
+    autoencoder's core, nor a later SR model an earlier one's. With
+    ``num_devices`` N > 1 it is the sharded synthesizer over the first N
+    devices of the trainer's device type: the slice axis, or with
+    ``batched`` the volume axis (``make_sharded_batched_synthesizer``,
+    which returns the volumes)."""
     model = trainer._ae_model() if model is None else model
-    key = (model, decode_batch, latent_interp_cache_token(latent_interp))
+    n = int(num_devices or 1)
+    key = (model, decode_batch, latent_interp_cache_token(latent_interp),
+           n, batched and n > 1)
     cache = trainer.synth_cache
     if key not in cache:
-        cache[key] = make_synthesis_core(model, decode_batch,
-                                         latent_interp=latent_interp)
+        if n > 1:
+            from .. import parallel
+
+            mesh = parallel.local_mesh(n, trainer.device)
+            factory = (parallel.make_sharded_batched_synthesizer if batched
+                       else parallel.make_sharded_synthesizer)
+            cache[key] = factory(model, mesh, decode_batch=decode_batch,
+                                 latent_interp=latent_interp)
+        else:
+            cache[key] = make_synthesis_core(model, decode_batch,
+                                             latent_interp=latent_interp)
     return cache[key]
 
 
@@ -435,11 +500,14 @@ def _predict_chunked(trainer, kept: torch.Tensor, decode_batch):
 
 def _combo_volume(trainer, kept: torch.Tensor, alphas: torch.Tensor,
                   k_true: int, use_original: bool, decode_batch,
-                  latent_interp: str, decodes_labels: bool) -> torch.Tensor:
+                  latent_interp: str, decodes_labels: bool,
+                  num_devices: int = 1) -> torch.Tensor:
     """The AE+CAISR combo's interleaved [S', P, H, W] volume (unclamped;
     ``_finalize_volume_outputs`` clamps the image plane): the SR model
-    synthesizes, the primary reconstructs (or the kept slices stay)."""
-    core = _get_core(trainer, decode_batch, latent_interp, trainer.params_sr)
+    synthesizes (slice-sharded over ``num_devices``), the primary
+    reconstructs (or the kept slices stay)."""
+    core = _get_core(trainer, decode_batch, latent_interp, trainer.params_sr,
+                     num_devices)
     interp = core(kept, alphas, use_original=True)["interp"]
     n_ch = 2 if (decodes_labels and interp.shape[-3] >= 2) else 1
     interp = interp[:k_true - 1, :, :n_ch]
@@ -459,11 +527,7 @@ def _combo_volume(trainer, kept: torch.Tensor, alphas: torch.Tensor,
     return interleave_volume(recon.to(dtype), interp.to(dtype))
 
 
-def _check_serving_options(trainer, num_devices, readback_dtype) -> None:
-    if num_devices and int(num_devices) > 1:
-        raise NotImplementedError(
-            "num_devices > 1: multi-GPU serving is "
-            + _NOT_PORTED.format(item="S5"))
+def _check_serving_options(trainer, readback_dtype) -> None:
     sr = getattr(trainer, "params_sr", None)
     if sr is not None and not isinstance(sr, torch.nn.Module):
         raise TypeError(
@@ -527,7 +591,7 @@ def create_super_volume(trainer, images, alpha_range=None,
     'pred_alphas', 'upsampled_labels'}; see the reference
     ``create_super_volume`` for every option. ``readback_dtype=
     'bfloat16'`` casts on the device and widens on the host."""
-    _check_serving_options(trainer, num_devices, readback_dtype)
+    _check_serving_options(trainer, readback_dtype)
     if tta:
         variants = _tta_variants(tta)
         kwargs = dict(alpha_range=alpha_range, use_original=use_original,
@@ -568,7 +632,10 @@ def create_super_volume(trainer, images, alpha_range=None,
             [kept, np.asarray(lbl_in, np.float32)[:, None]], axis=1)
     k_true = kept.shape[0]
     a_n = int(len(alpha_range))
+    n_dev = int(num_devices or 1)
     k_pad = bucket_size(k_true) if pad_to_bucket else k_true
+    # slice-axis sharding needs the kept count divisible by the mesh
+    k_pad = -(-k_pad // n_dev) * n_dev
     kept = _pad_kept(kept, k_pad, latent_interp)
 
     if decode_batch == "auto":
@@ -576,15 +643,20 @@ def create_super_volume(trainer, images, alpha_range=None,
         # reconstructions and interpolants decode together: budget the sum
         decode_batch = _auto_decode_batch(k_pad + (k_pad - 1) * a_n,
                                           kept.shape[2], kept.shape[3], depth)
+    if n_dev > 1 and decode_batch is not None:
+        # the budget is per device
+        decode_batch = max(32, int(decode_batch) // n_dev)
 
     dev = trainer.device
     kept_t = torch.from_numpy(np.ascontiguousarray(kept)).to(dev)
     alphas_t = torch.from_numpy(alpha_range).to(dev)
     if getattr(trainer, "params_sr", None) is not None:
         vol = _combo_volume(trainer, kept_t, alphas_t, k_true, use_original,
-                            decode_batch, latent_interp, decodes_labels)
+                            decode_batch, latent_interp, decodes_labels,
+                            n_dev)
     else:
-        out = _get_core(trainer, decode_batch, latent_interp)(
+        out = _get_core(trainer, decode_batch, latent_interp,
+                        num_devices=n_dev)(
             kept_t, alphas_t, use_original=use_original, interleave=True)
         # valid prefix of the padded interleaved volume: the image plane,
         # and the decoded labels' plane of a MultiChannelAE
@@ -677,7 +749,7 @@ def create_super_volumes(trainer, images_list: Sequence,
     call, from ``_batch_volume_cap``). TTA and lone volumes take the
     per-volume path, and so does the AE+CAISR combo. Returns per-volume
     result dicts in input order."""
-    _check_serving_options(trainer, num_devices, readback_dtype)
+    _check_serving_options(trainer, readback_dtype)
     images_list = list(images_list)
     if labels_list is None:
         labels_list = [None] * len(images_list)
@@ -730,15 +802,38 @@ def create_super_volumes(trainer, images_list: Sequence,
     results: list = [None] * len(images_list)
     dev = trainer.device
     alphas_dev = torch.from_numpy(alpha_range).to(dev)
+    nd = int(num_devices or 1)
     for (k_pad, c, h, w), items in groups.items():
+        if nd > 1 and len(items) == 1:
+            # a lone shape under a mesh: the slice-sharded single path
+            meta = items[0][1]
+            results[meta["index"]] = create_super_volume(
+                trainer, images_list[meta["index"]], labels=meta["labels"],
+                **kwargs)
+            continue
         db, max_b = _batch_volume_cap(k_pad, a_n, h, w, depth,
                                       decode_batch=decode_batch, channels=c)
-        core = _get_core(trainer, db, latent_interp)
-        for start in range(0, len(items), max_b):
-            part = items[start:start + max_b]
-            stack = torch.from_numpy(np.stack([it[0] for it in part])).to(dev)
-            vols = core(stack, alphas_dev, use_original=use_original,
-                        interleave=True)["volume"]
+        if nd > 1:
+            # the volume axis sharded over the mesh: chunks of a multiple
+            # of N volumes (the budget is per device), the last one padded
+            # by repeating its final volume
+            synth = _get_core(trainer, db, latent_interp, num_devices=nd,
+                              batched=True)
+            b = min(max_b, -(-len(items) // nd)) * nd
+        else:
+            core = _get_core(trainer, db, latent_interp)
+            b = max_b
+        for start in range(0, len(items), b):
+            part = items[start:start + b]
+            stacked = [it[0] for it in part]
+            if nd > 1:
+                stacked += [part[-1][0]] * (b - len(part))
+            stack = torch.from_numpy(np.stack(stacked)).to(dev)
+            if nd > 1:
+                vols = synth(stack, alphas_dev, use_original)[:len(part)]
+            else:
+                vols = core(stack, alphas_dev, use_original=use_original,
+                            interleave=True)["volume"]
             s_max = max((it[1]["k_true"] - 1) * (a_n + 1) + 1 for it in part)
             vols = _readback(vols[:, :s_max, :planes], readback_dtype)
             for j, (_kept, meta) in enumerate(part):

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.distributed import global_sum, in_sharded_step
 from .config import AEConfig
 
 LEAKY_SLOPE = 0.01  # nn.LeakyReLU() default, as in the original network
@@ -104,7 +105,10 @@ class BatchNorm(nn.Module):
     reduced in float32 (also for bfloat16 activations), the fast
     variance ``max(0, E[x^2] - E[x]^2)`` (biased), gradients through
     both; the running statistics move as ``ra = 0.9 * ra + 0.1 * batch``
-    with the biased variance."""
+    with the biased variance. In a sharded train step the statistics are
+    the global batch's: the float32 sums of x and x² and the count are
+    all-reduced (with their gradients) over the ranks, each of which
+    moves its running statistics by the same global values."""
 
     momentum = 0.9
 
@@ -120,18 +124,27 @@ class BatchNorm(nn.Module):
                 update_stats: bool = True) -> torch.Tensor:
         shape = (1, -1, 1, 1)
         xf = x.float()
-        if train:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3))
-                                  - mean * mean, 0.0)
+        if not train:
+            mean, var = self.running_mean, self.running_var
+        else:
+            if in_sharded_step():
+                c = xf.shape[1]
+                sums = global_sum(torch.cat([
+                    xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
+                    xf.new_full((1,), xf.numel() // c)]))
+                mean = sums[:c] / sums[-1]
+                var = torch.clamp_min(sums[c:2 * c] / sums[-1] - mean * mean,
+                                      0.0)
+            else:
+                mean = xf.mean(dim=(0, 2, 3))
+                var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3))
+                                      - mean * mean, 0.0)
             if update_stats:
                 with torch.no_grad():
                     for ra, stat in ((self.running_mean, mean),
                                      (self.running_var, var)):
                         ra.mul_(self.momentum).add_(
                             stat.detach() * (1.0 - self.momentum))
-        else:
-            mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         return y.to(x.dtype)

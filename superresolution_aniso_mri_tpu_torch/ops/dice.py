@@ -8,14 +8,17 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.distributed import global_mean
+
 
 def soft_dice_score(probs: torch.Tensor, one_hot: torch.Tensor,
                     eps: float = 1.0e-6) -> torch.Tensor:
     """Negative mean per-(batch, class) soft Dice of ``[B, C, H, W]``
-    probabilities against a ``[B, C, H, W]`` one-hot target."""
+    probabilities against a ``[B, C, H, W]`` one-hot target (the mean
+    over every rank's batch in a sharded train step)."""
     nominator = 2.0 * (one_hot * probs).sum(dim=(2, 3))
     denominator = one_hot.sum(dim=(2, 3)) + probs.sum(dim=(2, 3)) + eps
-    return -(nominator / denominator).mean()
+    return -global_mean(nominator / denominator)
 
 
 def one_hot(labels: torch.Tensor, n_classes: int,

@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import device_constant
+from ..parallel.distributed import global_mean
 
 _K1D = (1.0, 4.0, 6.0, 4.0, 1.0)
 
@@ -54,10 +55,11 @@ def laplacian_pyramid(img: torch.Tensor,
 
 def lap_loss(pred: torch.Tensor, target: torch.Tensor,
              max_levels: int = 3) -> torch.Tensor:
-    """Sum over levels of the mean |pyramid difference|."""
+    """Sum over levels of the mean |pyramid difference| (over every
+    rank's batch in a sharded train step)."""
     pairs = zip(laplacian_pyramid(pred, max_levels),
                 laplacian_pyramid(target, max_levels))
-    return sum((a - b).abs().mean() for a, b in pairs)
+    return sum(global_mean((a - b).abs()) for a, b in pairs)
 
 
 def lap_loss_per_sample(pred: torch.Tensor, target: torch.Tensor,

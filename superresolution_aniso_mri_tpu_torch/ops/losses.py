@@ -14,31 +14,34 @@ from typing import Optional
 import torch
 
 from ..device import device_constant
+from ..parallel.distributed import global_mean, global_sum, step_world
 
 
 def mse(pred: torch.Tensor, target: torch.Tensor,
         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean squared error, optionally times an elementwise loss mask
-    (the mean still runs over every element)."""
+    (the mean still runs over every element; in a sharded train step
+    over every rank's)."""
     d = (pred - target) ** 2
     if mask is not None:
         d = d * mask
-    return d.mean()
+    return global_mean(d)
 
 
 def bce_sum_over_batch(pred: torch.Tensor, target: torch.Tensor,
                        eps: float = 1e-7) -> torch.Tensor:
     """Binary cross entropy summed over the elements and divided by the
-    batch size (the VAE reconstruction loss); ``pred`` is clipped to
-    ``[eps, 1 - eps]``."""
+    batch size (the VAE reconstruction loss; the global batch in a
+    sharded train step); ``pred`` is clipped to ``[eps, 1 - eps]``."""
     p = pred.clamp(eps, 1.0 - eps)
     ce = -(target * torch.log(p) + (1.0 - target) * torch.log1p(-p))
-    return ce.sum() / pred.shape[0]
+    return global_sum(ce.sum()) / (pred.shape[0] * step_world())
 
 
 def kl_standard_normal(mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
     """Mean over the elements of KL(N(mu, exp(logvar)) ‖ N(0, 1))."""
-    return (-0.5 * logvar + 0.5 * (torch.exp(logvar) + mu ** 2) - 0.5).mean()
+    return global_mean(-0.5 * logvar + 0.5 * (torch.exp(logvar) + mu ** 2)
+                       - 0.5)
 
 
 def latent_mix(z: torch.Tensor, alpha_from, alpha_to) -> torch.Tensor:

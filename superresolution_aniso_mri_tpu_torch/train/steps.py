@@ -79,6 +79,7 @@ from ..ops.losses import (bce_sum_over_batch, kl_standard_normal, latent_mix,
 from ..ops.lpips import lpips_distance
 from ..ops.metrics import ssim_volume
 from ..ops.perceptual import enc_lpips_distance
+from ..parallel.distributed import average_gradients, global_mean, global_sum
 from .state import TrainState, scalar_tensor
 
 Batch = Dict[str, torch.Tensor]
@@ -142,7 +143,10 @@ def check_supported(cfg: LossConfig) -> None:
 
 
 def _weighted(per_sample: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    return (per_sample * weight).sum() / weight.sum().clamp_min(1.0)
+    """``sum(l·w) / max(sum(w), 1)``, both sums over the global batch in
+    a sharded train step."""
+    return (global_sum((per_sample * weight).sum())
+            / global_sum(weight.sum()).clamp_min(1.0))
 
 
 def _recon_loss(cfg: LossConfig, lpips_params: Any, pred: torch.Tensor,
@@ -152,16 +156,17 @@ def _recon_loss(cfg: LossConfig, lpips_params: Any, pred: torch.Tensor,
     ``use_ssim_loss``), plus, with ``use_laploss``, the Laplacian-pyramid
     term in either branch (the reference adds it after the dispatch)."""
     if cfg.recon_loss == "perceptual_enc" and lpips_params is not None:
-        dist = enc_lpips_distance(lpips_params, pred, target,
-                                  compute_dtype=cfg.lpips_dtype).mean()
+        dist = global_mean(enc_lpips_distance(lpips_params, pred, target,
+                                              compute_dtype=cfg.lpips_dtype))
     elif cfg.recon_loss == "perceptual" and lpips_params is not None:
-        dist = lpips_distance(lpips_params, pred, target, normalize=True,
-                              compute_dtype=cfg.lpips_dtype).mean()
+        dist = global_mean(lpips_distance(lpips_params, pred, target,
+                                          normalize=True,
+                                          compute_dtype=cfg.lpips_dtype))
     else:
         dist = mse(pred, target)
         if cfg.use_ssim_loss:
-            s = ssim_volume(pred[:, 0], target[:, 0], data_range=1.0,
-                            win_size=11).mean()
+            s = global_mean(ssim_volume(pred[:, 0], target[:, 0],
+                                        data_range=1.0, win_size=11))
             dist = dist + 0.135 * (1.0 - s)
     lap = lap_loss(pred, target) if cfg.use_laploss else pred.new_zeros(())
     return dist + lap, dist, lap
@@ -187,7 +192,7 @@ def _mix_image_loss(cfg: LossConfig, lpips_params: Any,
                     compute_dtype=cfg.lpips_dtype)
         if sample_weight is not None:
             return _weighted(d, sample_weight)
-        return d.mean()
+        return global_mean(d)
     m = mask if (cfg.use_masks and mask is not None) else None
     if sample_weight is None:
         loss = mse(reference, synthesized, m)
@@ -329,13 +334,13 @@ def _acai_losses(models, cfg: LossConfig, lpips_params: Any, batch: Batch,
     out = ae.decode(z, train=True)
     _, loss_dist, loss_lap = _recon_loss(cfg, lpips_params, out, x)
     d_reg = disc(out + cfg.gamma_reg_acai * (x - out), train=True)
-    loss_disc_l2 = (d_reg ** 2).mean()
+    loss_disc_l2 = global_mean(d_reg ** 2)
     alpha = batch["noise_alpha"]
     out_mix = ae.decode(latent_mix(z, alpha, 1.0 - alpha), train=True,
                         update_stats=False)
     d_mix = disc(out_mix, train=True, update_stats=False)
-    loss_ae_l2 = (d_mix ** 2).mean()
-    loss_disc_dist = ((d_mix - alpha) ** 2).mean()
+    loss_ae_l2 = global_mean(d_mix ** 2)
+    loss_disc_dist = global_mean((d_mix - alpha) ** 2)
     # the objective takes loss_ae_DIST only: the reference logs the
     # Laplacian term but trains on ['loss_ae_dist']
     loss_ae_full = loss_dist + cfg.lamb_reg_acai * loss_ae_l2
@@ -493,7 +498,7 @@ def _alpha_losses(models, cfg: LossConfig, lpips_params: Any, batch: Batch,
     loss_extra = img_w * loss_img + 0.5 * (l_lat1 + l_lat2)
     metrics = {"loss_latent_1": l_lat1, "loss_latent_2": l_lat2,
                "loss_ae_dist_extra": loss_img, "loss_ae_extra": loss_extra,
-               "pred_alpha_mean": alpha.mean()}
+               "pred_alpha_mean": global_mean(alpha)}
     if variant == "alpha_only":
         total = loss_extra
         metrics["loss_ae_dist"] = mse(out, x)
@@ -527,6 +532,10 @@ def _update(state: TrainState, cfg: LossConfig, lpips_params: Any,
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
         params.values(), torch.autograd.grad(loss, list(params.values()),
                                              allow_unused=True))]
+    # a sharded step: the mean of the ranks' gradients of the global loss
+    # (each reached its own rows through the reductions) is the global
+    # gradient, before the clip and Adam of every parameter group
+    grads = average_gradients(grads)
     state.tx.apply({k: p.data for k, p in params.items()},
                    dict(zip(params, grads)), state.opt_state, scalars)
     return metrics

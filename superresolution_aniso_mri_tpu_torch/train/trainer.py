@@ -40,8 +40,22 @@ the synthesis of ``infer.create_super_volume`` go through it.
 graph replayed per step on the card). The step's random draws (ACAI's
 critic alphas, the VAE's reparametrisation noise) come from the
 trainer's own ``torch.Generator`` on its device, seeded from the seed,
-and enter the batch (``draw_noise``). Not ported, and raising: when
-training, ``num_devices > 1`` (item 11). A training trainer whose
+and enter the batch (``draw_noise``).
+
+``num_devices`` N > 1 trains data-parallel (``parallel.mesh``): one
+trainer per rank of a process group of N ranks (``parallel.launch``;
+the train CLI starts them), each on its rank's device. ``train`` takes
+the global batch, the same on every rank, draws its noise for the
+global batch and steps on the rank's rows; the step reduces the losses,
+the BatchNorm statistics and the gradient over the group, so every
+rank holds the single-process state of the global batch. ``validate``
+scores the whole batch on every rank. Only rank 0 writes
+(``settings.yaml``, checkpoints, loss archives, TensorBoard, EMA), as
+JAX gates them. As in JAX: ``steps_per_dispatch > 1`` with N > 1
+raises ValueError (the CUDA-graph replay stays single-device), and so
+does N beyond the attached devices (outside a group) or a global batch
+whose pair count N does not divide. A trainer with N > 1 builds outside
+a group; its ``train`` then raises. A training trainer whose
 ``ae_class`` cannot feed its family's loss (``MultiChannelAE``'s
 ``{"image", "soft_probs"}`` outside the multichannel families, or
 another class in them) raises a ValueError; JAX builds it and fails at
@@ -69,6 +83,10 @@ from ..models.alpha import ALPHA_FEATURES
 from ..models.convert import torch_to_flax
 from ..ops.lpips import get_lpips_params, lpips_weights_info
 from ..ops.perceptual import get_enc_perceptual_params
+from ..parallel import (create_mesh, is_main_process, local_mesh,
+                        make_sharded_train_step, process_count,
+                        process_index, replicate_state)
+from ..parallel.distributed import is_rank
 from .checkpoint import load_checkpoint, load_checkpoint_raw, save_checkpoint
 from .import_torch import (is_torch_checkpoint, load_reference_pickle,
                            reference_state_to_port)
@@ -169,12 +187,28 @@ def weight_annealing_schedule(epochs: int, weight: float) -> np.ndarray:
     return y[::-1].copy()
 
 
-def _unsupported(args: Dict[str, Any], eval_mode: bool) -> Optional[str]:
+def check_data_parallel(args: Dict[str, Any], device,
+                        eval_mode: bool = False) -> Optional[list]:
+    """The mesh of a data-parallel training run (``num_devices`` N > 1),
+    None for one device or ``eval_mode``. Raises JAX's ValueErrors:
+    ``steps_per_dispatch > 1`` with N > 1 (in either mode, as JAX); when
+    training, a process group whose size is not N or, outside a group,
+    fewer than N devices of ``device``'s type attached."""
+    n_dev = int(args.get("num_devices") or 1)
+    if n_dev <= 1:
+        return None
+    if int(args.get("steps_per_dispatch", 1) or 1) > 1:
+        # fail at construction, not at the first train_many call
+        raise ValueError("steps_per_dispatch > 1 is not supported with "
+                         "num_devices > 1")
     if eval_mode:
         return None
-    if int(args.get("num_devices") or 1) > 1:
-        return "num_devices > 1 (ROADMAP item 11)"
-    return None
+    if is_rank():
+        if process_count() != n_dev:
+            raise ValueError(f"--num_devices {n_dev} but the process group "
+                             f"has {process_count()} rank(s)")
+        return create_mesh()
+    return local_mesh(n_dev, device)
 
 
 def _check_family_model(family: str, ae_class: str) -> None:
@@ -225,10 +259,11 @@ class Trainer:
                  device=None, seed: Optional[int] = None):
         self.args = apply_setting_defaults(dict(args))
         self.eval_mode = eval_mode
-        why = _unsupported(self.args, eval_mode)
-        if why:
-            raise NotImplementedError(f"not ported yet: {why}")
         self.device = resolve_device(device)
+        # data-parallel training: this rank's replica lives on its device
+        self.mesh = check_data_parallel(self.args, self.device, eval_mode)
+        if self.mesh is not None and is_rank():
+            self.device = self.mesh[process_index()]
         self.model_config = AEConfig.from_args(self.args)
         self.loss_config = loss_config_from_args(self.args)
         self.family = self.loss_config.family
@@ -289,9 +324,14 @@ class Trainer:
         tx = (PartitionOptimizer({"ae": ae_tx, "disc": make_optimizer(
             lr, wd, 0.9, None, clip)}) if self.family == "acai" else ae_tx)
         self.state = create_train_state(model, lr, tx=tx)
-        if not eval_mode:
+        if self.mesh is not None:
+            self.train_step = make_sharded_train_step(
+                self.loss_config, self.lpips_params, self.mesh)
+            self.state = replicate_state(self.mesh, self.state)
+        elif not eval_mode:
             self.train_step = make_train_step(self.loss_config,
                                               self.lpips_params)
+        if not eval_mode:
             self.eval_step = make_eval_step(self.loss_config,
                                             self.lpips_params)
         self._multi_step = None
@@ -334,7 +374,9 @@ class Trainer:
     def prepare_run(self) -> None:
         """Create the experiment tree (``models/``, ``log_images/``) and
         write ``settings.yaml``: the trainer's args without the keys that
-        start with ``_``."""
+        start with ``_``. Rank 0 only: ranks share the experiment."""
+        if not is_main_process():
+            return
         out = self.args["output_dir"]
         os.makedirs(self.dir_models, exist_ok=True)
         os.makedirs(self.dir_images, exist_ok=True)
@@ -360,7 +402,8 @@ class Trainer:
         """``batch`` with the step's random draws of its family from the
         trainer's generator: ACAI's ``noise_alpha`` ~ U[0, 0.5) [B], the
         VAE's ``noise_eps`` ~ N(0, 1) [2B, heads' width]; the batch
-        itself for the other families."""
+        itself for the other families. Data-parallel ranks draw for the
+        global batch, which they all hold."""
         b = batch["slice_between"].shape[0]
         kw = dict(generator=self.noise_generator, device=self.device)
         if self.family == "acai":
@@ -386,6 +429,10 @@ class Trainer:
         ``batches``, through ``make_multi_train_step`` (on the card a
         CUDA graph replayed per step); the same trajectory as N
         ``train`` calls. Returns the metrics stacked per key ([N])."""
+        if self.mesh is not None:
+            raise ValueError("steps_per_dispatch > 1 is not supported with "
+                             "num_devices > 1 (the sharded step already "
+                             "amortizes dispatch across the mesh)")
         if self._multi_step is None:
             self._multi_step = make_multi_train_step(
                 self.loss_config, self.lpips_params, device=self.device)
@@ -519,13 +566,16 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def save_models(self, fname: str, epoch: int) -> None:
-        save_checkpoint(fname, self.state, epoch)
+        if is_main_process():  # the ranks' states are equal: rank 0's
+            save_checkpoint(fname, self.state, epoch)
 
     def load(self, fname: str) -> None:
         """Restore ``fname`` (the port's or JAX's ``SRTPU1`` file, or a
         reference torch pickle) into the state; an EMA track resumes from
         ``ema.models`` beside it, else from the loaded weights."""
         self.state, self.epoch = load_checkpoint(fname, self.state)
+        if self.mesh is not None:  # every rank resumes rank 0's state
+            self.state = replicate_state(self.mesh, self.state)
         self._warn_torch_stem_geometry(fname)
         if self.ema_params is not None:
             ema_path = os.path.join(os.path.dirname(fname), "ema.models")
@@ -623,6 +673,8 @@ class Trainer:
         os.replace(tmp, path)
 
     def save_losses(self) -> None:
+        if not is_main_process():
+            return
         out = self.args["output_dir"]
         self._savez_atomic(os.path.join(out, "loss_iters.npz"),
                            loss_iters=np.array(self.loss_iters))
@@ -655,7 +707,7 @@ class Trainer:
                              self.epoch + 1)
         self.save_models(os.path.join(self.dir_models, "last.models"),
                          self.epoch + 1)
-        if self.ema_params is not None:
+        if self.ema_params is not None and is_main_process():
             # a normal checkpoint whose parameters are the averaged ones
             # (buffers and optimizer state from the live state): load it
             # with get_trainer(model_nbr='ema')

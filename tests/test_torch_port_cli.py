@@ -343,17 +343,20 @@ def test_port_train_resumes_and_saves_on_interrupt(dirs, tmp_path,
     (["--get_masks"], "labeled volumes"),
     (["-d", "MNISTRoto", "--train_latent_interp", "lanczos3"],
      "not supported for MNISTRoto"),
-    (["--num_devices", "2"], "item 11"),
-    (["--num_processes", "2"], "item 11"),
+    (["--num_processes", "2"], "incomplete configuration"),
+    (["--num_devices", "2", "--steps_per_dispatch", "8"],
+     "steps_per_dispatch > 1 is not supported with num_devices > 1"),
+    (["--num_devices", "3"], r"batch pairs \(8\) must be divisible by "
+                             r"num_devices \(3\)"),
 ])
 def test_train_refuses_what_is_not_ported_before_writing(tmp_path, extra,
                                                          item):
-    """Unported options raise NotImplementedError naming their ROADMAP
-    item; ``--get_masks`` on a dataset without labels and MNISTRoto with
-    a multi-tap ``--train_latent_interp`` raise the ValueErrors JAX
-    raises, here before anything is written."""
-    error = NotImplementedError if "item" in item else ValueError
-    with pytest.raises(error, match=item):
+    """The ValueErrors JAX raises, here before anything is written:
+    ``--get_masks`` on a dataset without labels, MNISTRoto with a
+    multi-tap ``--train_latent_interp``, ``--num_processes 2`` without a
+    coordinator, ``--num_devices`` with ``--steps_per_dispatch > 1`` and
+    a batch that ``--num_devices`` does not divide."""
+    with pytest.raises(ValueError, match=item):
         entry.train_brain(TINY + ["-o", str(tmp_path), "-id", "x",
                                   "--device", "cpu"] + extra)
     assert not os.path.exists(tmp_path / "x")

@@ -264,12 +264,23 @@ def test_trainer_writes_the_jax_experiment_files(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra, item", [
-    (dict(num_devices=2), "item 11"),
+    (dict(num_devices=2), None),
+    (dict(num_devices=2, steps_per_dispatch=8),
+     "steps_per_dispatch > 1 is not supported with num_devices > 1"),
 ])
 def test_trainer_raises_for_what_is_not_ported(extra, item):
+    """``Trainer(num_devices=2, device="cpu")`` builds (a mesh of two CPU
+    shards; its ``train`` needs the ranks of a process group); with
+    ``steps_per_dispatch > 1`` it raises JAX's ValueError."""
     from superresolution_aniso_mri_tpu_torch.train import Trainer
 
-    with pytest.raises(NotImplementedError, match=item):
+    if item is None:
+        t = Trainer(dict(ARGS, **extra), device="cpu")
+        assert t.mesh == [torch.device("cpu")] * 2
+        with pytest.raises(RuntimeError, match="process group"):
+            t.train({"slice_between": torch.zeros(2, 1, 32, 32)})
+        return
+    with pytest.raises(ValueError, match=item):
         Trainer(dict(ARGS, **extra), device="cpu")
 
 

@@ -281,11 +281,24 @@ def test_serving_params_are_the_models():
 
 
 @pytest.mark.parametrize("kw, exc, match", [
-    (dict(num_devices=2), NotImplementedError, "S5"),
+    (dict(num_devices=2), None, None),
     (dict(readback_dtype="float16"), ValueError, "readback_dtype"),
     (dict(latent_interp="bogus"), ValueError, "latent_interp"),
 ])
 def test_unported_options_raise(pair, kw, exc, match):
+    """Bad options raise on both entry points; ``num_devices=2`` serves
+    (two CPU shards) the one-device volumes."""
+    if exc is None:
+        np.testing.assert_allclose(
+            create_super_volume(pair[1], _volume(0), **kw)["upsampled_image"],
+            create_super_volume(pair[1], _volume(0))["upsampled_image"],
+            atol=ATOL)
+        for got, want in zip(
+                create_super_volumes(pair[1], [_volume(0)] * 2, **kw),
+                create_super_volumes(pair[1], [_volume(0)] * 2)):
+            np.testing.assert_allclose(got["upsampled_image"],
+                                       want["upsampled_image"], atol=ATOL)
+        return
     with pytest.raises(exc, match=match):
         create_super_volume(pair[1], _volume(0), **kw)
     with pytest.raises(exc, match=match):
@@ -295,7 +308,8 @@ def test_unported_options_raise(pair, kw, exc, match):
 def test_combo_and_packed_raise(pair):
     """An SR model that is not the module ``Trainer.load_caisr`` loads
     (JAX's (params, batch_stats) pair) raises a TypeError on both entry
-    points; the packed decoder (A11) raises NotImplementedError."""
+    points; the packed decoder (A11) synthesizes what the plain decoder
+    does."""
     port = pair[1]
     port.params_sr = ({}, {})
     try:
@@ -305,8 +319,15 @@ def test_combo_and_packed_raise(pair):
             create_super_volumes(port, [_volume(0)] * 2)
     finally:
         del port.params_sr
-    with pytest.raises(NotImplementedError, match="packed"):
-        tsv.make_synthesis_core(port._ae_model(), packed=True)
+    kept = torch.from_numpy(_volume(0, s=6)[:, None])
+    alphas = torch.tensor([0.25, 0.5, 0.75])
+    packed = tsv.make_synthesis_core(port._ae_model(), packed=True)(
+        kept, alphas, interleave=True)
+    plain = tsv.make_synthesis_core(port._ae_model())(kept, alphas,
+                                                      interleave=True)
+    for key in ("recon", "interp", "volume"):
+        np.testing.assert_allclose(packed[key].numpy(), plain[key].numpy(),
+                                   atol=ATOL, err_msg=key)
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
@@ -357,6 +378,8 @@ def test_port_imports_without_jax():
             "import superresolution_aniso_mri_tpu_torch.evaluate.sr_seg_eval\n"
             "import superresolution_aniso_mri_tpu_torch.utils.dicom\n"
             "import superresolution_aniso_mri_tpu_torch.utils.image_misc\n"
+            "import superresolution_aniso_mri_tpu_torch.parallel\n"
+            "import superresolution_aniso_mri_tpu_torch.infer.packed_decoder\n"
             "bad = [m for m in sys.modules if m == "
             "'superresolution_aniso_mri_tpu' or m.startswith("
             "'superresolution_aniso_mri_tpu.')]\n"
@@ -394,5 +417,6 @@ def test_port_sources_import_nothing_of_the_jax_package():
             "model_registry.py", "sax_to_lax.py", "seg_metrics.py",
             "clinical.py", "masi.py", "acdc_aux.py", "sr_seg_eval.py",
             "dicom.py", "image_misc.py", "lpips_gap_study.py",
-            "fit_perceptual_head.py",
+            "fit_perceptual_head.py", "distributed.py", "mesh.py",
+            "packed_decoder.py",
             "convert_lpips_weights.py"} <= set(scanned)
