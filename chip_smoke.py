@@ -203,6 +203,27 @@ Phases (any failure ends the run with a non-zero exit):
      (e) the decode of ``DP_DECODE`` latents, packed against plain,
      float32 and bf16, medians of 20 CUDA-event times. Its numbers go on
      the ``parallel`` line.
+ 17. the last modules: (a) two ranks on cuda:0 over gloo as a dp 1 ×
+     mp 2 mesh (``parallel.create_mesh_2d`` / ``shard_state_2d`` /
+     ``make_sharded_train_step_2d``: each conv kernel's output channels
+     split over the model group), phase 16's recipe for
+     ``MESH2D_STEPS`` steps, the whole gradient and θ gathered from the
+     shards (``gather_state_2d``), against the single process and the
+     single process on pairs permuted ``MESH2D_PERMUTATIONS`` ways
+     (phase 16c's gates, over the largest of the permuted gaps), every
+     run with cuDNN's deterministic algorithms (as phase 16d); both
+     ranks' replicated parameters and BatchNorm statistics the same
+     bits; (b) on phase 8's OASIS tree (run inside phase 8's block,
+     after phase 15): the native loader built at first use, every OASIS
+     file decoded bit for bit against the numpy reader, the recipe's
+     batches gathered bit for bit against the numpy stack, and in turns
+     (numpy, native, native, numpy) the directory ingest's seconds
+     (the native ingest against the loaders' Python pool), the batch
+     assembly's host ms and the uncached recipe's ms/step (one epoch a
+     run), medians, with the host named; (c) the figures: every page
+     drawn where matplotlib imports, else ``evaluate`` imports and a
+     figure call raises ``ModuleNotFoundError`` naming matplotlib. Its
+     numbers go on the ``phase17`` line.
 The main path (serve linear → score) runs with every kernel launch count
 set to 0 just before it and read just after; so do the train phase's
 path (serve the trained checkpoint → score), each find-best sweep of
@@ -356,6 +377,9 @@ ROTO_ARGV = ["-d", "MNISTRoto", "-m", "ae_combined", "-b", "16", "--width",
 DP_ARGS = dict(TRAIN_ARGS, train_latent_interp="lanczos3")
 DP_STEPS, DP_KEPT, DP_DECODE = 10, 29, 43
 PARALLEL_SSIM_ATOL = 6e-8
+# phase 17: steps of the 2-D (dp 1 × mp 2) step on phase 16's recipe;
+# the permuted single-process runs that measure the reordering noise
+MESH2D_STEPS, MESH2D_PERMUTATIONS = 5, 3
 
 
 def log(msg: str) -> None:
@@ -3369,7 +3393,9 @@ def _permuted(batch: dict, perm) -> dict:
 def _record_steps(trainer, batches) -> dict:
     """``trainer.train`` on each batch: loss_ae per step, the gradient
     that reaches the optimizer at step 1 (all-reduced on a rank), θ0 and
-    θ after the last step, the mean host ms per step (synchronised)."""
+    θ after the last step, the mean host ms per step (synchronised) and
+    the mean of the steps after the first (``warm_ms``: the first builds
+    cuDNN's plans and the lazily made state)."""
     tx, seen = trainer.state.tx, {}
     apply = tx.apply
 
@@ -3379,20 +3405,27 @@ def _record_steps(trainer, batches) -> dict:
                          for k, g in grads.items()})
         return apply(params, grads, state, scalars)
 
-    theta0 = {k: p.detach().cpu().numpy()
+    # a copy: on the CPU ``.cpu().numpy()`` shares the parameter's memory
+    theta0 = {k: p.detach().cpu().numpy().copy()
               for k, p in trainer.state.params().items()}
     tx.apply = recording
     losses = []
     try:
         _sync(trainer.device)
         t0 = time.perf_counter()
-        for b in batches:
+        for i, b in enumerate(batches):
             losses.append(trainer.train(b)["loss_ae"])
+            if i == 0:
+                _sync(trainer.device)
+                t1 = time.perf_counter()
         _sync(trainer.device)
-        ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+        t2 = time.perf_counter()
     finally:
         tx.apply = apply
-    out = {"loss": np.array([float(v) for v in losses]), "ms": np.float64(ms)}
+    n = len(batches)
+    out = {"loss": np.array([float(v) for v in losses]),
+           "ms": np.float64((t2 - t0) * 1e3 / n),
+           "warm_ms": np.float64((t2 - t1) * 1e3 / max(n - 1, 1))}
     for k, p in trainer.state.params().items():
         out[f"theta0/{k}"] = theta0[k]
         out[f"theta/{k}"] = p.detach().cpu().numpy()
@@ -3467,6 +3500,38 @@ def _leaf_gap(got: dict, want: dict, prefix: str, mask=None) -> float:
             worst = max(worst, float(np.abs(a - b)[sel].max()
                                      / max(np.abs(b).max(), 1e-30)))
     return worst
+
+
+def _trajectory_gaps(run: dict, single: dict) -> dict:
+    """The largest relative gaps of a ``_record_steps`` run to the single
+    process's: the loss of every step, the step-1 gradient, θ − θ0
+    after the last (N-th) step as ``thetaN`` (all entries, and those
+    whose step-1 gradient is resolved: at least 1e-3 of its leaf's
+    largest)."""
+    theta_key = f"theta{len(single['loss'])}"
+    resolved = {k[len("grad/"):]: np.abs(v) >= 1e-3 * np.abs(v).max()
+                for k, v in single.items() if k.startswith("grad/")}
+    steps = {k: run[k] - run["theta0/" + k[len("theta/"):]]
+             for k in run if k.startswith("theta/")}
+    steps_1 = {k: single[k] - single["theta0/" + k[len("theta/"):]]
+               for k in single if k.startswith("theta/")}
+    return {"loss": float(np.max(np.abs(run["loss"] - single["loss"])
+                                 / np.abs(single["loss"]))),
+            "grad1": _leaf_gap(run, single, "grad/"),
+            theta_key: _leaf_gap(steps, steps_1, "theta/"),
+            f"{theta_key}_resolved": _leaf_gap(steps, steps_1, "theta/",
+                                               resolved.get)}
+
+
+def _beyond_noise(gap: dict, noise: dict) -> list:
+    """The gaps above 3× the permuted run's (θ after the Adam steps: an
+    entry near a zero gradient moves by ±lr a step with the sign of that
+    noise, hence the wider margin), and a step-1 gradient above 1e-2."""
+    bad = [k for k in gap if not gap[k] <= 3 * noise[k] + (
+        0.05 if k.startswith("theta") else 1e-6)]
+    if not gap["grad1"] <= 1e-2:
+        bad.append("grad1")
+    return bad
 
 
 def check_parallel(seed: int, card: str, dev) -> dict:
@@ -3596,22 +3661,8 @@ def check_parallel(seed: int, card: str, dev) -> dict:
             _record_steps(Trainer(dict(DP_ARGS, seed=seed), device=dev), bs)
             for bs in (batches, [_permuted(b, perm.to(dev))
                                  for b in batches]))
-        grad_mag = {k[len("grad/"):]: np.abs(v) >= 1e-3 * np.abs(v).max()
-                    for k, v in single.items() if k.startswith("grad/")}
-
-        def gaps(run: dict) -> dict:
-            steps = {k: run[k] - run["theta0/" + k[len("theta/"):]]
-                     for k in run if k.startswith("theta/")}
-            steps_1 = {k: single[k] - single["theta0/" + k[len("theta/"):]]
-                       for k in single if k.startswith("theta/")}
-            return {"loss": float(np.max(np.abs(run["loss"] - single["loss"])
-                                         / np.abs(single["loss"]))),
-                    "grad1": _leaf_gap(run, single, "grad/"),
-                    "theta10": _leaf_gap(steps, steps_1, "theta/"),
-                    "theta10_resolved": _leaf_gap(steps, steps_1, "theta/",
-                                                  grad_mag.get)}
-
-        dp_gap, noise = gaps(dp), gaps(shuffled)
+        dp_gap, noise = (_trajectory_gaps(run, single)
+                         for run in (dp, shuffled))
         out.update(
             dp_loss=dp["loss"].tolist(), single_loss=single["loss"].tolist(),
             **{f"dp_{k}_max_rel_gap": v for k, v in dp_gap.items()},
@@ -3622,12 +3673,7 @@ def check_parallel(seed: int, card: str, dev) -> dict:
             f"{DP_STEPS} steps [{card}]: max rel gaps {json.dumps(dp_gap)}; "
             f"the single process on the permuted pairs "
             f"{json.dumps(noise)}; losses {dp['loss'].round(6).tolist()}")
-        # θ after 10 Adam steps: an entry near a zero gradient moves by
-        # ±lr a step with the sign of that noise, hence the wider margin
-        bad = [k for k in dp_gap if not dp_gap[k] <= 3 * noise[k] + (
-            0.05 if k.startswith("theta") else 1e-6)]
-        if not dp_gap["grad1"] <= 1e-2:
-            bad.append("grad1")
+        bad = _beyond_noise(dp_gap, noise)
         if bad:
             raise AssertionError(f"the 2-rank trajectory differs from the "
                                  f"single-process one beyond the reordering "
@@ -3691,6 +3737,366 @@ def check_parallel(seed: int, card: str, dev) -> dict:
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"parallel: phase 16 {out['phase_s']:.1f} s")
     return out
+
+
+def _mesh2d_rank(out_dir: str, seed: int, device: str, spec: dict) -> None:
+    """Phase 17a on one rank of a dp 1 × mp N group: phase 16's recipe
+    through ``make_sharded_train_step_2d``; rank 0 keeps the trajectory
+    with the whole step-1 gradient and θ gathered from the shards, and
+    the shapes of its shards."""
+    import torch
+
+    from superresolution_aniso_mri_tpu_torch import parallel
+    from superresolution_aniso_mri_tpu_torch.parallel import distributed
+    from superresolution_aniso_mri_tpu_torch.train import Trainer
+
+    # the same convolution algorithms in every run (as phase 16d): the
+    # gaps to the single process are then those of the split alone
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    mesh = parallel.create_mesh_2d(dp=1, mp=parallel.process_count())
+    trainer = Trainer(dict(spec["args"], seed=seed), device=device)
+    theta0 = {k: p.detach().cpu().numpy().copy()
+              for k, p in trainer.state.params().items()}
+    rule = parallel.state_sharding_2d(mesh, trainer.state)
+    parallel.shard_state_2d(mesh, trainer.state)
+    trainer.train_step = parallel.make_sharded_train_step_2d(
+        trainer.loss_config, None, mesh)
+    batches = _dp_batches(seed, spec["steps"], trainer.device, spec)
+    rec = _record_steps(trainer, batches)
+    _, group = distributed.mesh_groups(mesh.dp, mesh.mp)
+    full = parallel.gather_state_2d(mesh, trainer.state)
+    out = {"loss": rec["loss"], "ms": rec["ms"], "warm_ms": rec["warm_ms"]}
+    for k, dim in rule.items():
+        g = rec[f"grad/{k}"]
+        if dim is not None:
+            out[f"shard/{k}"] = np.array(g.shape)
+            g = distributed.gather_shards(
+                torch.from_numpy(g).to(trainer.device), dim,
+                group).cpu().numpy()
+        out[f"grad/{k}"] = g
+        out[f"theta0/{k}"] = theta0[k]
+        out[f"theta/{k}"] = full.params()[k].detach().cpu().numpy()
+        out[f"split/{k}"] = np.int64(-1 if dim is None else dim)
+    # every rank's replicated parameters and BatchNorm statistics, which
+    # must be the same bits on every rank of the model group
+    own = {f"replicated/{k}": p.detach().cpu().numpy()
+           for k, p in trainer.state.params().items() if rule[k] is None}
+    own.update({f"buffer/{k}": v.cpu().numpy()
+                for k, v in trainer.state.model.named_buffers()})
+    rank = parallel.process_index()
+    np.savez(os.path.join(out_dir, f"replicas.r{rank}.npz"), **own)
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "mesh2d.npz"), **out)
+
+
+def check_mesh2d(seed: int, card: str, dev) -> dict:
+    """Phase 17a (see the module docstring): the 2-D step on
+    ``[cuda:0, cuda:0]`` against the single process."""
+    import tempfile
+
+    import torch
+
+    from superresolution_aniso_mri_tpu_torch import parallel
+    from superresolution_aniso_mri_tpu_torch.train import Trainer
+
+    spec = dict(_dp_spec(), steps=MESH2D_STEPS)
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        parallel.launch(_mesh2d_rank, (tmp, seed, dev.type, spec),
+                        [dev, dev], "gloo", timeout_s=300,
+                        join_timeout_s=600)
+        out["mesh2d_launch_s"] = time.perf_counter() - t0
+        with np.load(os.path.join(tmp, "mesh2d.npz")) as f:
+            run = dict(f)
+        replicas = []
+        for r in range(2):
+            with np.load(os.path.join(tmp, f"replicas.r{r}.npz")) as f:
+                replicas.append(dict(f))
+    if sorted(replicas[0]) != sorted(replicas[1]) or any(
+            not np.array_equal(v, replicas[1][k])
+            for k, v in replicas[0].items()):
+        raise AssertionError("the model ranks' replicated parameters or "
+                             "BatchNorm statistics differ after the steps")
+    out["mesh2d_replicas_bit_equal"] = len(replicas[0])
+    batches = _dp_batches(seed, MESH2D_STEPS, dev, spec)
+
+    def trajectory(bs):
+        return _record_steps(Trainer(dict(DP_ARGS, seed=seed), device=dev),
+                             bs)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        single = trajectory(batches)
+        # the reordering noise: its largest gaps over several
+        # permutations (the loss after a few Adam steps moves by chance:
+        # one permuted run is too small a sample of it)
+        shuffled = [trajectory([_permuted(b, torch.randperm(
+            DP_ARGS["batch_size"], generator=torch.Generator().manual_seed(
+                seed + i)).to(dev)) for b in batches])
+            for i in range(MESH2D_PERMUTATIONS)]
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    split = {k[len("split/"):]: int(v) for k, v in run.items()
+             if k.startswith("split/")}
+    for k, dim in split.items():
+        if dim >= 0 and not (run[f"shard/{k}"][dim] * 2
+                             == run[f"grad/{k}"].shape[dim]):
+            raise AssertionError(f"{k}: the shard is not half the channels")
+    gap = _trajectory_gaps(run, single)
+    noise = {k: max(g[k] for g in map(
+        lambda r: _trajectory_gaps(r, single), shuffled)) for k in gap}
+    out.update(
+        mesh2d_split_leaves=sum(d >= 0 for d in split.values()),
+        mesh2d_replicated_leaves=sum(d < 0 for d in split.values()),
+        mesh2d_loss=run["loss"].tolist(), single_loss=single["loss"].tolist(),
+        **{f"mesh2d_{k}_max_rel_gap": v for k, v in gap.items()},
+        **{f"permuted_{k}_max_rel_gap": v for k, v in noise.items()},
+        mesh2d_ms_per_step_mp2_one_card_gloo=float(run["warm_ms"]),
+        single_ms_per_step=float(single["warm_ms"]),
+        mesh2d_first_step_ms=float(run["ms"] * MESH2D_STEPS
+                                   - run["warm_ms"] * (MESH2D_STEPS - 1)))
+    log(f"mesh2d a: dp 1 x mp 2 on [{dev}, {dev}] (gloo) vs 1 process, "
+        f"{MESH2D_STEPS} steps [{card}]: max rel gaps {json.dumps(gap)}; "
+        f"the single process on the pairs permuted "
+        f"{MESH2D_PERMUTATIONS} ways {json.dumps(noise)}; "
+        f"{out['mesh2d_split_leaves']} kernels split, "
+        f"{out['mesh2d_replicated_leaves']} leaves replicated, "
+        f"{out['mesh2d_replicas_bit_equal']} replicated tensors the same "
+        f"bits on both ranks; cuDNN deterministic; ms/step "
+        f"after the first {run['warm_ms']:.1f} (2-D) vs "
+        f"{single['warm_ms']:.1f} (one process)")
+    bad = _beyond_noise(gap, noise)
+    if bad:
+        raise AssertionError(f"the 2-D trajectory differs from the "
+                             f"single-process one beyond the reordering "
+                             f"noise: {bad}")
+    return out
+
+
+@contextlib.contextmanager
+def _loader(mode: str):
+    """``SRL_DISABLE_NATIVE`` set inside the block when ``mode`` is
+    ``numpy``, unset when it is ``native``."""
+    os.environ.pop("SRL_DISABLE_NATIVE", None)
+    if mode == "numpy":
+        os.environ["SRL_DISABLE_NATIVE"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("SRL_DISABLE_NATIVE", None)
+
+
+def _cpu_model() -> str:
+    """The host CPU's model name (``/proc/cpuinfo``), else its machine
+    type."""
+    import platform
+
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("model name"):
+                    return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    return platform.machine()
+
+
+def check_native_loader(tmp: str, seed: int, card: str) -> dict:
+    """Phase 17b (see the module docstring), on phase 8's OASIS tree."""
+    import glob
+
+    from superresolution_aniso_mri_tpu_torch.cli import entry
+    from superresolution_aniso_mri_tpu_torch.data import (TripletSampler,
+                                                          native_loader)
+    from superresolution_aniso_mri_tpu_torch.data.datasets import (
+        _read_images_parallel, load_brain_volumes)
+    from superresolution_aniso_mri_tpu_torch.utils import read_image
+
+    t_phase = time.perf_counter()
+    turns = ("numpy", "native", "native", "numpy")
+    out: dict = {"host": f"{_cpu_model()}, {os.cpu_count()} cores"}
+    t0 = time.perf_counter()
+    if not native_loader.available():
+        raise AssertionError("the native loader did not build")
+    out["native_build_s"] = time.perf_counter() - t0
+
+    # decode and directory ingest: every OASIS file, bit for bit
+    paths = sorted(glob.glob(os.path.join(
+        os.environ["SR_DATA_ROOT"], "OASIS", "nifti", "*", "*.nii.gz")))
+    for p, (arr, spacing, affine) in zip(
+            paths, native_loader.read_nifti_many(paths)):
+        want = read_image(p)
+        if not (np.array_equal(arr, want[0].astype(np.float32))
+                and np.array_equal(spacing, want[1])
+                and (affine is None) == (want[2] is None)
+                and (affine is None or np.array_equal(affine, want[2]))):
+            raise AssertionError(f"native decode of {p} differs")
+    out["decoded_files"] = len(paths)
+    # the native ingest against the loaders' Python thread pool
+    ingest = {"native": [], "numpy": []}
+    readers = {"native": native_loader.read_nifti_many,
+               "numpy": _read_images_parallel}
+    for mode in turns:
+        t0 = time.perf_counter()
+        readers[mode](paths)
+        ingest[mode].append(time.perf_counter() - t0)
+
+    # the gather: the recipe's batches, bit for bit; host ms a batch
+    vols = load_brain_volumes("OASIS", OASIS_DS, "training")
+    batch = int(OASIS_ARGV[OASIS_ARGV.index("-b") + 1])
+    samplers, batches = {}, {}
+    for mode in ("native", "numpy"):
+        with _loader(mode):
+            samplers[mode] = TripletSampler(vols, OASIS_DS, pad_size=220,
+                                            seed=seed)
+            batches[mode] = [samplers[mode].sample_batch(batch)
+                             for _ in range(3)]
+    for a, b in zip(batches["native"], batches["numpy"]):
+        for k in b:
+            if not np.array_equal(a[k], b[k]):
+                raise AssertionError(f"native gather: batch key {k} differs")
+    assembly = {"native": [], "numpy": []}
+    for mode in turns:
+        with _loader(mode):
+            for _ in range(20):
+                t0 = time.perf_counter()
+                samplers[mode].sample_batch(batch)
+                assembly[mode].append((time.perf_counter() - t0) * 1e3)
+
+    # the uncached OASIS recipe, one epoch a run
+    steps = {"native": [], "numpy": []}
+    for i, mode in enumerate(turns):
+        exper = f"oasis_loader_{i}"
+        with _loader(mode):
+            res = _train_timed(entry.train_brain, _with_epochs(
+                OASIS_ARGV, 1) + ["-o", tmp, "-id", exper,
+                                  "--device_data_cache", "0"],
+                os.path.join(tmp, exper))
+        if set(res["samplers"]) != {"TripletSampler"}:
+            raise AssertionError(f"the uncached recipe ran {res['samplers']}")
+        steps[mode].append(res["ms_per_step"])
+    for name, book in (("ingest_s", ingest), ("assembly_ms", assembly),
+                       ("uncached_ms_per_step", steps)):
+        for mode, v in book.items():
+            out[f"{name}_{mode}"] = float(np.median(v))
+    out["uncached_ms_per_step_runs"] = steps
+    out["loader_phase_s"] = time.perf_counter() - t_phase
+    log(f"native loader b [{card}; host {out['host']}]: {len(paths)} OASIS "
+        f"files decoded bit for bit, gather bit for bit; medians native / "
+        f"numpy: ingest s {out['ingest_s_native']:.3f} / "
+        f"{out['ingest_s_numpy']:.3f}, batch assembly ms "
+        f"{out['assembly_ms_native']:.3f} / {out['assembly_ms_numpy']:.3f}, "
+        f"uncached recipe ms/step {out['uncached_ms_per_step_native']:.3f} / "
+        f"{out['uncached_ms_per_step_numpy']:.3f}")
+    return out
+
+
+def _figure_pages(fig_dir: str, dev) -> list:
+    """Draw every public figure function of the port once into
+    ``fig_dir`` from small seeded inputs; the files written."""
+    from superresolution_aniso_mri_tpu_torch.evaluate import (
+        journal2, plots, spie2021)
+    from superresolution_aniso_mri_tpu_torch.utils import loss_curves
+
+    rng = np.random.RandomState(0)
+    vol = rng.rand(8, 24, 24).astype(np.float32)
+    vol2 = np.clip(vol + 0.1 * rng.randn(*vol.shape), 0, 1).astype(np.float32)
+    v4d = rng.rand(2, 8, 24, 24).astype(np.float32)
+    metrics = ("ssim", "psnr", "vif")
+    res = {m: {f"{k}{s}": rng.rand(5) for k in metrics
+               for s in ("", "_synth")} for m in ("linear", "ours")}
+    keys = ("loss_ae_dist", "loss_ae_dist_extra", "loss_latent_1")
+    exper = os.path.join(fig_dir, "exper")
+    os.makedirs(exper)
+    np.savez(os.path.join(exper, "loss_iters.npz"), loss_iters=np.arange(6))
+    for split in ("train", "test"):
+        np.savez(os.path.join(exper, f"losses_{split}.npz"),
+                 **{k: rng.rand(6) for k in keys})
+
+    def path(name):
+        return os.path.join(fig_dir, name + ".png")
+
+    plots.metric_boxplots(res, save_path=path("boxplots"))
+    plots.qualitative_comparison_figure(vol, {"ours": vol2}, [1, 4],
+                                        save_path=path("qualitative"))
+    plots.long_axis_strip(vol, save_path=path("lax_strip"))
+    plots.bland_altman_plot(rng.rand(8), rng.rand(8),
+                            save_path=path("bland_altman"))
+    plots.upsample_factor_compare({"ours": {2: rng.rand(4), 4: rng.rand(4)}},
+                                  save_path=path("factors"))
+    plots.interpolation_sequence_figure(vol[0], vol[1:4], vol[4], vol[1:4],
+                                        save_path=path("sequence"))
+    plots.compare_methods_slices(vol[2], {"ours": vol2[2]},
+                                 save_path=path("methods_slices"))
+    plots.reconstructions_grid({"ours": vol2}, [0, 3],
+                               save_path=path("recon_grid"))
+    plots.orthogonal_views_figure(vol, save_path=path("orthogonal"))
+    plots.lax_views_compare({"ours": vol2}, save_path=path("lax_compare"))
+    plots.label_overlay_figure(vol[3], rng.randint(0, 4, (24, 24)),
+                               acdc=True, save_path=path("overlay"))
+    plots.animate_volume(vol[:3], os.path.join(fig_dir, "scroll.gif"))
+    journal2.upsample_factor_page(
+        {k: {f"{m}_synth": rng.rand(4) for m in metrics} for k in (2, 4)},
+        save_path=path("j2_factors"))
+    journal2.lambda_page({v: res["ours"] for v in (0.01, 0.1)},
+                         save_path=path("j2_lambda"))
+    journal2.methods_comparison_page(vol, {"ours": vol2}, [2, 4],
+                                     save_path=path("j2_methods"))
+    journal2.interpol_sequence_page(vol[0], vol[1:4], vol[4], (2, 12, 2, 12),
+                                    save_path=path("j2_sequence"))
+    journal2.reconstruction_page(vol, {"ours": vol2}, [1, 2],
+                                 save_path=path("j2_recon"))
+    journal2.boxplot_page(res, save_path=path("j2_boxplots"))
+    journal2.cardiac_lax_page({"reference": v4d, "ours": v4d}, 1,
+                              save_path=path("j2_cardiac_lax"))
+    spie2021.spie_boxplot_page({k: [rng.rand(5), rng.rand(5)]
+                                for k in metrics}, ["linear", "ours"],
+                               save_path=path("spie_boxplots"))
+    spie2021.lax_view_pages({m: {"p": {"image": v4d}}
+                             for m in ("reference", "ours")}, "p", 5, 3,
+                            frame_id=1, with_diff_image=True,
+                            fig_dir=fig_dir)
+    spie2021.methods_grid_page({"original": vol, "ours": vol2}, 2, 5,
+                               save_path=path("spie_grid"))
+    spie2021.interpol_example_page(rng.rand(5, 24, 24), vol[:3],
+                                   save_path=path("spie_example"))
+    spie2021.presentation_slice_pages({"reference": vol, "ours": vol2}, 3, 4,
+                                      fig_dir=fig_dir)
+    spie2021.two_method_slice_compare(vol, vol2, vol2, [2, 3],
+                                      downsample_steps=2,
+                                      save_path=path("spie_two"),
+                                      device=dev)
+    loss_curves.show_experiment_losses(exper, save_path=path("losses"))
+    return sorted(f for f in os.listdir(fig_dir) if "." in f)
+
+
+def check_figures(card: str, dev) -> dict:
+    """Phase 17c (see the module docstring)."""
+    import importlib.util
+    import tempfile
+
+    import superresolution_aniso_mri_tpu_torch.evaluate  # noqa: F401
+    from superresolution_aniso_mri_tpu_torch.evaluate import plots
+
+    if importlib.util.find_spec("matplotlib") is not None:
+        with tempfile.TemporaryDirectory() as tmp:
+            files = _figure_pages(tmp, dev)
+        log(f"figures c: matplotlib imports; every page drawn: "
+            f"{len(files)} files")
+        return {"figures": "drawn", "figure_files": len(files)}
+    try:
+        plots.metric_boxplots({})
+    except ModuleNotFoundError as exc:
+        if exc.name != "matplotlib":
+            raise
+        log(f"figures c: no matplotlib on this machine; evaluate imports "
+            f"and a figure call raises ModuleNotFoundError: {exc} [{card}]")
+        return {"figures": "no matplotlib: evaluate imports, a figure "
+                           "call raises ModuleNotFoundError"}
+    raise AssertionError("a figure drew without matplotlib")
 
 
 def _kernel_kind(name: str) -> str:
@@ -3957,12 +4363,23 @@ def main() -> int:
         evaluation = check_eval(tmp, args.seed, card, dev)
         # ---- 15. dataset preparation, SR segmentation, perceptual tools
         prep = check_prep(tmp, args.seed, card, dev)
+        # ---- 17b. the native host loader on phase 8's OASIS tree -------
+        loader = check_native_loader(tmp, args.seed, card)
     # ---- 16. data-parallel training, sharded serving, packed decode ----
     par = check_parallel(args.seed, card, dev)
+    # ---- 17a, c. the 2-D data × model step; the figures ----------------
+    t17 = time.perf_counter()
+    mesh2d = check_mesh2d(args.seed, card, dev)
+    figures = check_figures(card, dev)
+    phase17_s = time.perf_counter() - t17 + loader["loader_phase_s"]
+    log(f"phase 17: {phase17_s:.1f} s")
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"parallel": {k: v for k, v in par.items()
                                    if k != "launches"}}), flush=True)
+    print(json.dumps({"phase17": {**mesh2d, **loader, **figures,
+                                  "phase_s": phase17_s, "card": card}}),
+          flush=True)
     log(card)  # name and power limit, as nvidia-smi prints them
     print(json.dumps({"kernels": [{
         "name": "ssim_slice", "route": "cuda",

@@ -5,9 +5,8 @@ Port of ``superresolution_aniso_mri_tpu/data/datasets.py`` (reference:
 datasets/common_brains.py:160-226 get_images, datasets/ACDC/data.py and
 data4d_simple.py, datasets/OASIS/dataset.py:104-122): the same patient
 ids in the same order, the same arrays bit for bit. Files are decoded by
-a thread pool over ``utils/nifti.py::read_image`` (the JAX package's
-native host loader is not ported). Split files are read and written
-without pyyaml (``config/settings.py``).
+a thread pool over ``utils/nifti.py::read_image``. Split files are read
+and written without pyyaml (``config/settings.py``).
 
 ACDCLBL reads the labeled ED/ES frames (``patientXXX_frameYY.nii.gz``
 and their ``_gt`` label maps) beside ACDC's 4D cines. The eval-only
@@ -109,7 +108,10 @@ def _warn_empty_split(dataset, split, n_files, splits):
 
 def _read_images_parallel(paths) -> Dict[str, tuple]:
     """{path: (array, spacing, affine)}, decoded by a thread pool (gzip
-    inflation releases the interpreter lock)."""
+    inflation releases the interpreter lock). The native loader's
+    ingest (``data/native_loader.py::read_nifti_many``, which JAX's
+    loader calls here) gives the same bits but measured slower than
+    this pool on an H100 machine's 8-core host (PERF.md, phase 17b)."""
     paths = list(paths)
     if len(paths) <= 1:
         return {p: read_image(p) for p in paths}

@@ -3,8 +3,9 @@
 A numpy copy of ``superresolution_aniso_mri_tpu/data/pairs.py``
 (``TripletSampler``, ``latent_taps`` 2/4/6). It draws from the same
 ``RandomState`` stream in the same order, so a seed gives bitwise the
-same batches as the JAX package's sampler. Batches are assembled with
-numpy (the JAX package's native gather gives the same bits). Labeled
+same batches as the JAX package's sampler. Batches are assembled by
+the native loader's gather (``data/native_loader.py``) when it is
+available, else with numpy; the same bits either way. Labeled
 volumes (ACDCLBL) pair a label plane with every image plane, and
 ``use_masks`` (``--get_masks``) appends the between slice's loss mask
 (``data/masks.py``) as the last channel.
@@ -208,10 +209,18 @@ class TripletSampler:
         }
 
     def _assemble_batch(self, idxs) -> Dict[str, np.ndarray]:
-        """Batched assembly: the numpy per-item stack."""
+        """Batched assembly: one threaded channel-interleaving gather in
+        the native loader (``csrc/srloader.cc`` ``srl_gather``) when it
+        is available, else the numpy per-item stack. The same bits
+        either way."""
         specs = [self._item_spec(int(i)) for i in idxs]
-        triplets = np.stack([np.stack(self._item_chans(s), axis=-1)
-                             for s in specs]).astype(np.float32, copy=False)
+        chans = [self._item_chans(s) for s in specs]
+        from . import native_loader
+        if native_loader.available():
+            triplets = native_loader.gather_triplets(chans)
+        else:
+            triplets = np.stack([np.stack(c, axis=-1) for c in chans]
+                                ).astype(np.float32, copy=False)
         return {
             "triplet": triplets,
             "alpha_from": np.array([s["a_from"] for s in specs], np.float32),

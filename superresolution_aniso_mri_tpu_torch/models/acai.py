@@ -30,7 +30,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel.distributed import global_sum, in_sharded_step
+from ..parallel.distributed import (copy_to_model_ranks,
+                                    gather_from_model_ranks, global_sum,
+                                    in_sharded_step)
 from .config import AEConfig
 
 LEAKY_SLOPE = 0.01  # nn.LeakyReLU() default, as in the original network
@@ -47,7 +49,15 @@ class Conv(nn.Module):
     ``padding``; float32 parameters cast to the activation dtype per
     call. ``kernel_init`` names the draw of ``reset_parameters``:
     ``"acai"`` (the ACAI family's), ``"lecun"`` (flax's ``nn.Conv``
-    default) or ``"kaiming"`` (flax's ``kaiming_normal``)."""
+    default) or ``"kaiming"`` (flax's ``kaiming_normal``).
+
+    On a 2-D mesh (``parallel.shard_state_2d``) ``weight`` holds this
+    rank's ``1/model_shards`` of the output channels (dim 0): the conv
+    runs on them without the bias, the model group's channels are
+    gathered, and the replicated bias is added to the whole."""
+
+    model_shards = 1   # ranks that split the output channels
+    out_dim = 0        # the output-channel dim of ``weight``
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
                  padding: Optional[int] = None, bias: bool = True,
@@ -60,10 +70,16 @@ class Conv(nn.Module):
                         else kernel // 2 if stride == 1 else 0)
         self.kernel_init = kernel_init
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(x.dtype)
+    def _conv(self, x: torch.Tensor, bias) -> torch.Tensor:
         return F.conv2d(x, self.weight.to(x.dtype), bias,
                         stride=self.stride, padding=self.padding)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        if self.model_shards == 1:
+            return self._conv(x, bias)
+        y = gather_from_model_ranks(self._conv(copy_to_model_ranks(x), None))
+        return y if bias is None else y + bias.view(1, -1, 1, 1)
 
 
 class Dense(nn.Module):
@@ -84,17 +100,22 @@ class Dense(nn.Module):
 class ConvTranspose(nn.Module):
     """4x4 stride-2 transposed conv doubling H and W (the reference's
     ``use_upsample=False`` decoder block). Weight in torch layout
-    ``(in, out, 4, 4)``; ``padding=1`` gives the flax block's output."""
+    ``(in, out, 4, 4)``; ``padding=1`` gives the flax block's output.
+    Split over a model group as ``Conv`` is, along dim 1."""
+
+    model_shards = 1
+    out_dim = 1
 
     def __init__(self, channels: int):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(channels, channels, 4, 4))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose2d(x, self.weight.to(x.dtype),
-                                  self.bias.to(x.dtype), stride=2,
-                                  padding=1)
+    def _conv(self, x: torch.Tensor, bias) -> torch.Tensor:
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), bias,
+                                  stride=2, padding=1)
+
+    forward = Conv.forward
 
 
 class BatchNorm(nn.Module):

@@ -55,6 +55,12 @@ _CLUSTER: Optional[tuple] = None
 _LOCAL_DEVICES: Optional[List[torch.device]] = None
 # the process group of the running sharded train step (None: one process)
 _STEP_GROUP = contextvars.ContextVar("sr_step_group", default=None)
+# the model group of the running 2-D step: (group, this rank's index in
+# it, its size); None outside one
+_MODEL_GROUP = contextvars.ContextVar("sr_model_group", default=None)
+# the data and model groups of this rank per (dp, mp), made once per
+# process group (``dist.new_group`` is collective)
+_MESH_GROUPS: Dict[tuple, tuple] = {}
 
 DEFAULT_TIMEOUT_S = 1800.0
 
@@ -199,6 +205,7 @@ def _rank_main(local: int, fn: Callable, args: tuple, devices: list,
     try:
         fn(*args)
     finally:
+        _MESH_GROUPS.clear()
         dist.destroy_process_group()
 
 
@@ -340,11 +347,17 @@ def average_gradients(grads: List[torch.Tensor]) -> List[torch.Tensor]:
     most ``device.GROUP_BYTES``; ``grads`` unchanged outside a sharded
     step."""
     group = _STEP_GROUP.get()
-    if group is None:
-        return grads
+    return grads if group is None else _mean_over(grads, group)
+
+
+def _mean_over(grads: List[torch.Tensor], group) -> List[torch.Tensor]:
+    """The mean of ``grads`` over the ranks of ``group``, all-reduced as
+    flat buffers of at most ``device.GROUP_BYTES``."""
     from ..device import byte_groups
 
     world = dist.get_world_size(group)
+    if world == 1:
+        return list(grads)
     out = list(grads)
     for idx in byte_groups(grads):
         flat = torch.cat([grads[i].reshape(-1) for i in idx])
@@ -355,4 +368,141 @@ def average_gradients(grads: List[torch.Tensor]) -> List[torch.Tensor]:
             n = grads[i].numel()
             out[i] = flat[at:at + n].view_as(grads[i])
             at += n
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the model axis of a 2-D (data × model) mesh
+# ---------------------------------------------------------------------------
+
+def mesh_groups(dp: int, mp: int) -> tuple:
+    """(data group, model group) of this rank on a ``dp`` × ``mp`` mesh
+    over the running process group, rank ``d * mp + m`` at (d, m): the
+    data group is the ``dp`` ranks of this rank's model index, the model
+    group the ``mp`` ranks of its data index. Every rank makes every
+    group, in the same order, at its first call (collective)."""
+    if not is_rank():
+        raise RuntimeError(f"a {dp} x {mp} mesh needs a process group of "
+                           f"{dp * mp} ranks: start them with "
+                           f"parallel.launch")
+    if dist.get_world_size() != dp * mp:
+        raise ValueError(f"dp*mp = {dp}*{mp} != {dist.get_world_size()} "
+                         f"ranks")
+    key = (dp, mp)
+    if key not in _MESH_GROUPS:
+        d, m = divmod(dist.get_rank(), mp)
+        data = [dist.new_group([i * mp + j for i in range(dp)])
+                for j in range(mp)]
+        model = [dist.new_group([i * mp + j for j in range(mp)])
+                 for i in range(dp)]
+        _MESH_GROUPS[key] = (data[m], model[d])
+    return _MESH_GROUPS[key]
+
+
+@contextlib.contextmanager
+def sharding_over(group):
+    """Within the block, the model-sharded layers split their output
+    channels over the ranks of ``group`` (a model group of
+    ``mesh_groups``)."""
+    token = _MODEL_GROUP.set((group, dist.get_rank(group),
+                              dist.get_world_size(group)))
+    try:
+        yield
+    finally:
+        _MODEL_GROUP.reset(token)
+
+
+def model_group() -> tuple:
+    """(group, index, size) of the running 2-D step's model group."""
+    spec = _MODEL_GROUP.get()
+    if spec is None:
+        raise RuntimeError("a model-sharded layer or optimizer ran outside "
+                           "a 2-D train step (parallel.gather_state_2d "
+                           "gives the full state)")
+    return spec
+
+
+def _gather(t: torch.Tensor, dim: int, group, index: int,
+            size: int) -> torch.Tensor:
+    """The full tensor of the ``size`` shards of ``t`` along ``dim``,
+    shard ``index`` being ``t``: an all-reduce of a zero-filled buffer
+    holding this rank's shard in its place (gloo reduces CUDA tensors
+    but does not gather them; adding zeros is exact)."""
+    shape = list(t.shape)
+    c = shape[dim]
+    shape[dim] = c * size
+    full = t.new_zeros(shape)
+    full.narrow(dim, index * c, c).copy_(t)
+    dist.all_reduce(full, group=group)
+    return full
+
+
+class _CopyToModelRanks(torch.autograd.Function):
+    """The identity; its gradient is the sum over the model group of the
+    ranks' gradients, each of which reaches only the share of the input
+    gradient that flows from its own output channels."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _GatherFromModelRanks(torch.autograd.Function):
+    """The channels of every rank of the model group, concatenated along
+    ``dim``; the gradient of this rank's shard is its slice of the
+    incoming gradient, unreduced: what follows the gather is replicated
+    over the group, so every rank already holds the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group, index, size):
+        ctx.dim, ctx.index, ctx.c = dim, index, t.shape[dim]
+        return _gather(t, dim, group, index, size)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad.narrow(ctx.dim, ctx.index * ctx.c, ctx.c).contiguous(),
+                None, None, None, None)
+
+
+def copy_to_model_ranks(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (the same on every rank of the model group) as the input of
+    a layer whose output channels are split over the group."""
+    group, _, _ = model_group()
+    return _CopyToModelRanks.apply(x, group)
+
+
+def gather_from_model_ranks(t: torch.Tensor) -> torch.Tensor:
+    """The full NCHW output of a channel-split layer from this rank's
+    channels ``t`` (differentiable; see ``_GatherFromModelRanks``)."""
+    group, index, size = model_group()
+    return _GatherFromModelRanks.apply(t, 1, group, index, size)
+
+
+@torch.no_grad()
+def gather_shards(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The full tensor of the shards of ``t`` held by the ranks of
+    ``group`` (in group order), outside any step."""
+    return _gather(t, dim, group, dist.get_rank(group),
+                   dist.get_world_size(group))
+
+
+def model_mean(grads: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The mean of ``grads`` over the running 2-D step's model group."""
+    group, _, _ = model_group()
+    return _mean_over(grads, group)
+
+
+@torch.no_grad()
+def model_sum(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over the running 2-D step's model group."""
+    group, _, _ = model_group()
+    out = t.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, group=group)
     return out

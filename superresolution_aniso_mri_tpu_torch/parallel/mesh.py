@@ -19,19 +19,32 @@ axis needs no halo exchange: the latent stack is small, so every shard
 mixes its pairs from the whole gathered stack, the multi-tap taps of a
 pair near a shard boundary included.
 
-The 2-D data × model mesh of the JAX module (``:181-232``) is not
-ported: nothing outside the JAX package's tests calls it.
+The 2-D data × model mesh (``:181-232``) also runs one rank per mesh
+entry, rank ``d * mp + m`` at row d, column m. The rows of the global
+batch are split over the data axis; each conv kernel whose output
+channels divide by ``mp`` (JAX's ``_param_spec``) is split along them
+over the model axis, its Adam moments too, and every other tensor is
+replicated. A sharded conv gathers its channels over the model group
+(``models/acai.py``), so what follows it is replicated there; the loss,
+BatchNorm and gradient reductions run over the data group, and the
+replicated parameters' gradients are also averaged over the model
+group, so that those parameters stay the same bits on its ranks. JAX's
+GSPMD derives the same program from the sharding annotations.
 """
 from __future__ import annotations
 
 import copy
-from typing import Dict, List, Optional, Sequence
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from ..device import f32_exact
 from . import distributed
+
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
 
 
 def create_mesh(devices: Optional[Sequence] = None) -> List[torch.device]:
@@ -219,3 +232,164 @@ def make_sharded_batched_synthesizer(model, mesh: Sequence,
         return torch.cat([v.to(mesh[0]) for v in vols])
 
     return synth
+
+
+# ---------------------------------------------------------------------------
+# the 2-D (data × model) mesh
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Mesh2D:
+    """``dp`` rows (the data axis) of ``mp`` devices (the model axis);
+    rank ``d * mp + m`` runs on ``devices[d][m]``."""
+
+    devices: Tuple[Tuple[torch.device, ...], ...]
+
+    @property
+    def dp(self) -> int:
+        return len(self.devices)
+
+    @property
+    def mp(self) -> int:
+        return len(self.devices[0])
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {DATA_AXIS: self.dp, MODEL_AXIS: self.mp}
+
+    @property
+    def flat(self) -> List[torch.device]:
+        return [d for row in self.devices for d in row]
+
+
+def create_mesh_2d(devices: Optional[Sequence] = None,
+                   dp: Optional[int] = None, mp: int = 1) -> Mesh2D:
+    """The ``dp`` × ``mp`` mesh of ``devices`` (default: as
+    ``create_mesh``); ``dp`` defaults to ``len(devices) // mp``.
+    Raises JAX's ValueError when ``dp * mp`` is not the device count."""
+    devices = create_mesh(devices)
+    if dp is None:
+        dp = len(devices) // mp
+    if dp * mp != len(devices):
+        raise ValueError(f"dp*mp = {dp}*{mp} != {len(devices)} devices")
+    return Mesh2D(tuple(tuple(devices[d * mp:(d + 1) * mp])
+                        for d in range(dp)))
+
+
+def _sharded_layers(model, mp: int):
+    """(parameter name, module) of every conv whose kernel splits over
+    ``mp`` ranks: JAX's ``_param_spec`` (a 4-D kernel whose output
+    channels divide by ``mp`` and number at least ``mp``) on the port's
+    layouts, where a ``Conv``'s output channels are dim 0 and a
+    ``ConvTranspose``'s dim 1."""
+    from ..models.acai import Conv, ConvTranspose
+
+    for prefix, mod in model.named_modules():
+        if isinstance(mod, (Conv, ConvTranspose)):
+            c = mod.weight.shape[mod.out_dim] * mod.model_shards
+            if c % mp == 0 and c >= mp:
+                yield f"{prefix}.weight" if prefix else "weight", mod
+
+
+def state_sharding_2d(mesh: Mesh2D, state) -> Dict[str, Optional[int]]:
+    """The partition of a train state on ``mesh``: each parameter's name
+    with the dim split over the model axis, or None where it is
+    replicated. An Adam moment is split as its parameter is; BatchNorm
+    statistics and the counts are replicated."""
+    split = {name: mod.out_dim
+             for name, mod in _sharded_layers(state.model, mesh.mp)}
+    return {name: split.get(name) for name, _ in
+            state.model.named_parameters()}
+
+
+def _adam_states(state):
+    opt = state.opt_state
+    return list(opt.values()) if isinstance(opt, dict) else [opt]
+
+
+def _optimizers(tx):
+    return list(tx.groups.values()) if hasattr(tx, "groups") else [tx]
+
+
+def _kernel_and_moments(state, name: str, mod) -> List[torch.Tensor]:
+    return [mod.weight] + [moments[name] for adam in _adam_states(state)
+                           for moments in (adam.mu, adam.nu)
+                           if name in moments]
+
+
+@torch.no_grad()
+def shard_state_2d(mesh: Mesh2D, state):
+    """Place ``state`` by the 2-D partition rule, in place: rank 0's
+    parameters, statistics and moments on every rank (broadcast), then
+    each split kernel and its moments cut to this rank's block of
+    output channels; the optimizer's norm then spans the model group.
+    Returns ``state``."""
+    if any(tx.model_sharded is not None for tx in _optimizers(state.tx)):
+        raise ValueError("the state is already placed on a 2-D mesh")
+    distributed.mesh_groups(mesh.dp, mesh.mp)
+    tensors = list(state.model.state_dict().values())
+    for adam in _adam_states(state):
+        tensors += list(adam.mu.values()) + list(adam.nu.values())
+    for t in tensors:
+        dist.broadcast(t, src=0)
+    m = distributed.process_index() % mesh.mp
+    layers = list(_sharded_layers(state.model, mesh.mp)) if mesh.mp > 1 else []
+    for name, mod in layers:
+        c = mod.weight.shape[mod.out_dim] // mesh.mp
+        for t in _kernel_and_moments(state, name, mod):
+            t.data = t.narrow(mod.out_dim, m * c, c).clone()
+        mod.model_shards = mesh.mp
+    for tx in _optimizers(state.tx):
+        tx.model_sharded = frozenset(name for name, _ in layers)
+    return state
+
+
+@torch.no_grad()
+def gather_state_2d(mesh: Mesh2D, state):
+    """The whole train state of a state placed by ``shard_state_2d`` (a
+    copy; ``state`` is unchanged): every split kernel and its moments
+    gathered over this rank's model group. Collective over the group;
+    JAX's ``jax.device_get`` of a sharded state."""
+    from ..models.acai import Conv, ConvTranspose
+
+    full = copy.deepcopy(state)
+    for prefix, mod in full.model.named_modules():
+        if isinstance(mod, (Conv, ConvTranspose)) and mod.model_shards > 1:
+            _, group = distributed.mesh_groups(mesh.dp, mesh.mp)
+            name = f"{prefix}.weight" if prefix else "weight"
+            for t in _kernel_and_moments(full, name, mod):
+                t.data = distributed.gather_shards(t, mod.out_dim, group)
+            del mod.model_shards
+    for tx in _optimizers(full.tx):
+        tx.model_sharded = None
+    return full
+
+
+def make_sharded_train_step_2d(loss_config, lpips_params, mesh: Mesh2D):
+    """``step(state, batch, mix_weight) → (state, metrics)`` of
+    ``train.steps.make_train_step`` on one rank of a ``mesh.dp`` ×
+    ``mesh.mp`` group: ``batch`` is the global batch, its noise
+    included, of which the rank takes its data row's rows; ``state`` is
+    placed by ``shard_state_2d`` (at the first call when it is not yet).
+    The losses, BatchNorm statistics and gradients reduce over the data
+    group, the split convs gather over the model group and the
+    replicated parameters' gradients are averaged over it; the step is
+    the single-process step on the global batch."""
+    from ..train.steps import make_train_step
+
+    base = make_train_step(loss_config, lpips_params)
+
+    def step(state, batch, mix_weight):
+        data, model = distributed.mesh_groups(mesh.dp, mesh.mp)
+        if _optimizers(state.tx)[0].model_sharded is None:
+            shard_state_2d(mesh, state)
+        rank = distributed.process_index()
+        rows = distributed.global_batch_from_host(batch, rank // mesh.mp,
+                                                  mesh.dp)
+        local = {k: v.to(mesh.flat[rank], non_blocking=True)
+                 for k, v in rows.items()}
+        with distributed.reducing_over(data), \
+                distributed.sharding_over(model):
+            return base(state, local, mix_weight)
+
+    return step

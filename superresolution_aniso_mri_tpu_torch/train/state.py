@@ -20,6 +20,13 @@ the flax state dict of the optax state (``models/convert.py`` names).
 parameter groups of the ACAI family's ``{"ae", "disc"}`` model (JAX
 ``train/trainer.py:217-234``): one ``Optimizer`` per group, each
 clipping by its own global norm, with its own schedule and moments.
+
+On a 2-D mesh (``parallel.shard_state_2d``) the parameters named in
+``model_sharded`` and their moments are this rank's shards: the global
+norm adds their squares summed over the model group to those of the
+replicated parameters, whose gradients are first averaged over the
+group so that they update to the same bits on every rank; decay and
+Adam are element-wise, so they run on the shards as on whole tensors.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ import numpy as np
 import torch
 
 from ..device import byte_groups
+from ..parallel.distributed import model_mean, model_sum
 from ..models.convert import (flax_key, flax_moments_to_torch, set_in,
                               torch_to_flax)
 
@@ -95,6 +103,10 @@ class AdamState:
 class Optimizer:
     """The optax chain of ``make_optimizer`` on named float32 tensors."""
 
+    # the parameters that are model-group shards: set by
+    # ``parallel.shard_state_2d``, None for a state it has not placed
+    model_sharded: Optional[frozenset] = None
+
     def __init__(self, lr: float, weight_decay: float = 0.0,
                  momentum: float = 0.9, cosine_steps: Optional[int] = None,
                  max_grad_norm: float = 0.0, warmup_steps: int = 0):
@@ -110,10 +122,37 @@ class Optimizer:
                          {k: torch.zeros_like(v) for k, v in zeros.items()},
                          None if self.schedule.constant else 0)
 
-    def _clip_factors(self, grads: List[torch.Tensor]):
+    def _global_norm(self, names: List[str],
+                     grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The norm of the whole gradient; the shards' squares are summed
+        over the model group and added once to the replicated leaves'."""
+        if not self.model_sharded:
+            return torch.linalg.vector_norm(torch.stack(
+                torch._foreach_norm([grads[k] for k in names])))
+        zero = grads[names[0]].new_zeros(())
+
+        def squares(keys):
+            return (torch.stack(torch._foreach_norm([grads[k] for k in keys]))
+                    .square().sum() if keys else zero)
+
+        own = [k for k in names if k in self.model_sharded]
+        rest = [k for k in names if k not in self.model_sharded]
+        return torch.sqrt(squares(rest) + model_sum(squares(own)))
+
+    def _replicas_agree(self, names: List[str],
+                        grads: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+        """``grads`` with each replicated parameter's gradient averaged
+        over the model group. Its ranks computed it from the same values,
+        but a backward on the card need not give the same bits twice
+        (cuDNN's algorithms, atomic adds), and the replicated parameters
+        must stay the same bits on every rank of the group."""
+        rest = [k for k in names if k not in self.model_sharded]
+        return {**grads, **dict(zip(rest, model_mean(
+            [grads[k] for k in rest])))}
+
+    def _clip_factors(self, norm: torch.Tensor):
         """(div, mul) of optax's clip: ``g / div * mul``."""
-        norm = torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm(grads)))
         keep = norm < self.max_grad_norm
         # the ratio is only taken where the norm reached max_norm
         div = torch.where(keep, torch.ones_like(norm), norm)
@@ -154,7 +193,9 @@ class Optimizer:
         and replay it with new ``scalars``. The element-wise work runs in
         groups of at most ``GROUP_BYTES`` (the same numbers as one pass)."""
         names = list(params)
-        clip = (self._clip_factors([grads[k] for k in names])
+        if self.model_sharded is not None:
+            grads = self._replicas_agree(names, grads)
+        clip = (self._clip_factors(self._global_norm(names, grads))
                 if self.max_grad_norm else None)
         c1, c2, lr = scalars[0], scalars[1], scalars[2]
         b1 = self.b1

@@ -316,6 +316,43 @@ def test_augmentation_and_device_cache_on_card(cuda):
             assert torch.equal(a[k], b[k]), k
 
 
+@pytest.mark.parametrize("labeled", [False, True])
+def test_native_gather_batches_on_card_match_numpy(cuda, monkeypatch,
+                                                   labeled):
+    """Batches assembled by the native gather give, through
+    ``device_batch`` (the same augmentation draws), the same tensors on
+    the card as the numpy stack's (``SRL_DISABLE_NATIVE``); with loss
+    masks too."""
+    from superresolution_aniso_mri_tpu_torch.data import (
+        AugmentConfig, TripletSampler, Volume, device_batch, native_loader)
+
+    assert native_loader.available()
+    rng = np.random.RandomState(2)
+    vols = [Volume(image=rng.rand(11, 72, 80).astype(np.float32),
+                   spacing=np.ones(3)) for _ in range(3)]
+    if labeled:
+        for v in vols:
+            v.labels = rng.randint(0, 4, v.image.shape).astype(np.float32)
+    recipe = AugmentConfig(patch_size=32, aug_patch_size=80, noise=True,
+                           mirror=True)
+    batches = []
+    for disabled in (False, True):
+        if disabled:
+            monkeypatch.setenv("SRL_DISABLE_NATIVE", "1")
+            assert not native_loader.available()
+        sampler = TripletSampler(vols, 2, pad_size=80, seed=1,
+                                 use_masks=labeled)
+        gen = torch.Generator().manual_seed(5)
+        batches.append([device_batch(r, recipe, cuda, generator=gen,
+                                     with_mask=labeled)
+                        for r in sampler.epoch_batches(4)])
+    assert len(batches[0]) == len(batches[1]) == 8
+    for a, b in zip(*batches):
+        assert sorted(a) == sorted(b)
+        for k in b:
+            assert a[k].is_cuda and torch.equal(a[k], b[k]), k
+
+
 def _lpips_weights(device):
     import warnings
 

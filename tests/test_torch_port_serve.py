@@ -353,7 +353,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
 def test_port_imports_without_jax():
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
-            "for name in ('flax', 'optax', 'msgpack', 'yaml', 'PIL'):\n"
+            "for name in ('flax', 'optax', 'msgpack', 'yaml', 'PIL',\n"
+            "             'matplotlib'):\n"
             "    sys.modules[name] = None\n"
             "import superresolution_aniso_mri_tpu_torch.evaluate\n"
             "import superresolution_aniso_mri_tpu_torch.infer\n"
@@ -380,6 +381,19 @@ def test_port_imports_without_jax():
             "import superresolution_aniso_mri_tpu_torch.utils.image_misc\n"
             "import superresolution_aniso_mri_tpu_torch.parallel\n"
             "import superresolution_aniso_mri_tpu_torch.infer.packed_decoder\n"
+            "import superresolution_aniso_mri_tpu_torch.parallel.mesh\n"
+            "import superresolution_aniso_mri_tpu_torch.data.native_loader\n"
+            "import superresolution_aniso_mri_tpu_torch.evaluate.plots\n"
+            "import superresolution_aniso_mri_tpu_torch.evaluate.journal2\n"
+            "import superresolution_aniso_mri_tpu_torch.evaluate.spie2021\n"
+            "import superresolution_aniso_mri_tpu_torch.utils.loss_curves\n"
+            "from superresolution_aniso_mri_tpu_torch.evaluate import plots\n"
+            "try:\n"
+            "    plots.metric_boxplots({})\n"
+            "except ModuleNotFoundError as e:\n"
+            "    assert e.name == 'matplotlib', e\n"
+            "else:\n"
+            "    raise AssertionError('a figure drew without matplotlib')\n"
             "bad = [m for m in sys.modules if m == "
             "'superresolution_aniso_mri_tpu' or m.startswith("
             "'superresolution_aniso_mri_tpu.')]\n"
@@ -418,5 +432,6 @@ def test_port_sources_import_nothing_of_the_jax_package():
             "clinical.py", "masi.py", "acdc_aux.py", "sr_seg_eval.py",
             "dicom.py", "image_misc.py", "lpips_gap_study.py",
             "fit_perceptual_head.py", "distributed.py", "mesh.py",
-            "packed_decoder.py",
+            "packed_decoder.py", "native_loader.py", "plots.py",
+            "journal2.py", "spie2021.py", "loss_curves.py",
             "convert_lpips_weights.py"} <= set(scanned)
