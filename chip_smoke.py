@@ -196,10 +196,12 @@ Phases (any failure ends the run with a non-zero exit):
      data-parallel ``Trainer`` on the OASIS recipe at full width with
      ``--train_latent_interp lanczos3``, ``DP_STEPS`` steps, against the
      single process on the same global batches and on the batches with
-     their pairs permuted (the float32 reordering noise that bounds the
-     gaps of the loss, the step-1 gradient and θ − θ0), rank 1 writing
-     nothing; (d) a one-rank NCCL group's ``make_sharded_train_step``
-     against ``make_train_step`` and ``train-brain --num_devices 1``;
+     their pairs permuted ``MESH2D_PERMUTATIONS`` ways (the largest of
+     their gaps: the float32 reordering noise that bounds the gaps of
+     the loss, the step-1 gradient and θ − θ0), every run with cuDNN's
+     deterministic algorithms, rank 1 writing nothing; (d) a one-rank
+     NCCL group's ``make_sharded_train_step`` against
+     ``make_train_step`` and ``train-brain --num_devices 1``;
      (e) the decode of ``DP_DECODE`` latents, packed against plain,
      float32 and bf16, medians of 20 CUDA-event times. Its numbers go on
      the ``parallel`` line.
@@ -224,16 +226,34 @@ Phases (any failure ends the run with a non-zero exit):
      drawn where matplotlib imports, else ``evaluate`` imports and a
      figure call raises ``ModuleNotFoundError`` naming matplotlib. Its
      numbers go on the ``phase17`` line.
+ 18. the production-pipeline quality harness (``tools/
+     real_pipeline_quality.py``, ``tools/quality_check.py``): the port's
+     ``real-pipeline-quality`` end to end on the card, in a temp dir,
+     for the README's OASIS recipe row (7 patients of 37 × 64², σ 0.03,
+     MSE, latent width 32, no BN, the cosine schedule, lanczos3 serving,
+     4 epochs, ``--sweep_last 2``, 2 extra volumes) and its cardiac
+     throughput row (7 cines of 6 × 15 × 64², bf16, lanczos3, 2 epochs,
+     1 extra cine): fabrication, the training and find-best children
+     (the port's CLI; their SSIM launches through
+     ``SR_KERNEL_LAUNCHES_LOG``), the scoring in this process. Each row
+     has the keys of JAX's recorded row (r4 row 1, with those JAX's
+     tool has written since) and finite metrics; the SSIM launches of
+     the scoring and of find-best equal the count predicted from the
+     volumes (every pair the scoring scores held against the plain
+     version); the kept OASIS checkpoint scored on the CPU agrees with
+     the card per aggregate within ``QUALITY_CPU_RTOL``; then
+     ``quality-check`` for 2 epochs. Its numbers go on the ``phase18``
+     line.
 The main path (serve linear → score) runs with every kernel launch count
 set to 0 just before it and read just after; so do the train phase's
 path (serve the trained checkpoint → score), each find-best sweep of
 phase 7, phase 8's find-best, phase 9's scoring of the perceptual
 checkpoint and of the baselines, phase 10's scoring of the fitted
-table, phase 11's, 12's, 13's, 14's, 15's and 16's scoring paths (every
-pair each scored held against the plain version). The line before the last lists every
-kernel with its check, launches (``launches``: the main path;
-``launches_by_path``: every counted path) and times; the last line is
-the device summary.
+table, phase 11's, 12's, 13's, 14's, 15's, 16's and 18's scoring paths
+(every pair each scored held against the plain version). The line
+before the last lists every kernel with its check, launches
+(``launches``: the main path; ``launches_by_path``: every counted path)
+and times; the last line is the device summary.
 """
 import argparse
 import contextlib
@@ -268,7 +288,13 @@ KERNEL_SHAPES = ((HR_SLICES, HW, HW), (8, 256, 256), (5, 129, 97),
                  (4, 128, 128),
                  # phase 14: an OASIS volume's 176 reconstructed slices,
                  # a MNISTRoto validation volume (ds 4, width 64)
-                 (176, 208, 176), (33, 64, 64))
+                 (176, 208, 176), (33, 64, 64),
+                 # phase 18: the quality rows' scored volumes (OASIS
+                 # 37 x 64², ACDC frames 15 x 64²) and find-best's
+                 # chunks (one OASIS validation volume's 13 kept slices
+                 # padded to 16 → 46; 12 ACDC frames of 8 kept → 15)
+                 (37, 64, 64), (15, 64, 64), (46, 64, 64),
+                 (12 * 15, 64, 64))
 KERNEL_ATOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
@@ -378,8 +404,38 @@ DP_ARGS = dict(TRAIN_ARGS, train_latent_interp="lanczos3")
 DP_STEPS, DP_KEPT, DP_DECODE = 10, 29, 43
 PARALLEL_SSIM_ATOL = 6e-8
 # phase 17: steps of the 2-D (dp 1 × mp 2) step on phase 16's recipe;
-# the permuted single-process runs that measure the reordering noise
+# the permuted single-process runs that measure the reordering noise of
+# phases 16c and 17a
 MESH2D_STEPS, MESH2D_PERMUTATIONS = 5, 3
+# phase 18: the production-pipeline quality harness at a reduced depth.
+# The README's OASIS recipe row (docs/quality_real_r4.jsonl row 1) and
+# the cardiac throughput row (row 4, bfloat16) at their widths and
+# shapes, cut to 7 patients and 4 / 2 epochs; quality-check for 2
+# epochs. The kept OASIS checkpoint scored on the card and on the CPU
+# agrees per aggregate within QUALITY_CPU_RTOL (relative, plus one
+# rounding step of the row's 5 decimals)
+QUALITY_ROWS = {
+    "oasis": ["--dataset_shape", "OASIS", "--n_patients", "7",
+              "--num_slices", "37", "--inplane", "64", "--phantom_noise",
+              "0.03", "--loss_mode", "mse", "--latent_width", "32",
+              "--use_batchnorm", "0", "--lr_schedule", "--latent_interp",
+              "lanczos3", "--epochs", "4", "--sweep_last", "2",
+              "--extra_test_volumes", "2"],
+    "acdc": ["--dataset_shape", "ACDC", "--n_patients", "7", "--num_slices",
+             "15", "--inplane", "64", "--num_frames", "6", "--phantom_noise",
+             "0.03", "--loss_mode", "mse", "--latent_width", "32",
+             "--compute_dtype", "bfloat16", "--train_latent_interp",
+             "lanczos3", "--latent_interp", "lanczos3", "--epochs", "2",
+             "--sweep_last", "2", "--extra_test_volumes", "1"],
+}
+QUALITY_CHECK_ARGV = ["--epochs", "2"]
+QUALITY_CPU_RTOL = 1e-4
+# the keys JAX's tool writes that its recorded r4 rows predate (its r5
+# rows carry them)
+JAX_ROW_LATER_KEYS = ("score_noise", "aug_noise", "aug_blur",
+                      "max_grad_norm")
+ROW_METRICS = ("model", "model_all_slices", "best_conventional",
+               "model_extra", "best_conventional_extra")
 
 
 def log(msg: str) -> None:
@@ -3437,10 +3493,16 @@ def _dp_rank(out_dir: str, seed: int, device: str, spec: dict) -> None:
     """Phase 16c on one rank: the data-parallel ``Trainer`` on the global
     batches, its experiment in ``exper_r<rank>`` (only rank 0's may
     exist afterwards); rank 0 keeps the trajectory."""
+    import torch
+
     from superresolution_aniso_mri_tpu_torch.parallel import (process_count,
                                                               process_index)
     from superresolution_aniso_mri_tpu_torch.train import Trainer
 
+    # the same convolution algorithms as the single-process runs it is
+    # held against (``_single_and_noise``)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
     rank = process_index()
     trainer = Trainer(dict(spec["args"], num_devices=process_count(),
                            output_dir=os.path.join(out_dir,
@@ -3523,6 +3585,37 @@ def _trajectory_gaps(run: dict, single: dict) -> dict:
                                                resolved.get)}
 
 
+def _single_and_noise(batches, seed: int, dev) -> tuple:
+    """Phase 16's recipe (``DP_ARGS``) in one process on ``batches``,
+    and the float32 reordering noise: the largest gaps to that run
+    (``_trajectory_gaps``) over ``MESH2D_PERMUTATIONS`` runs on the
+    batches with their pairs permuted (seeds ``seed + i``). Every run
+    with cuDNN's deterministic algorithms. Phases 16c and 17a gate their
+    multi-rank trajectories on it (``_beyond_noise``): the loss after a
+    few Adam steps moves by chance, and one permuted run is too small a
+    sample of it."""
+    import torch
+
+    from superresolution_aniso_mri_tpu_torch.train import Trainer
+
+    def trajectory(bs):
+        return _record_steps(Trainer(dict(DP_ARGS, seed=seed), device=dev),
+                             bs)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        single = trajectory(batches)
+        shuffled = [trajectory([_permuted(b, torch.randperm(
+            DP_ARGS["batch_size"], generator=torch.Generator().manual_seed(
+                seed + i)).to(dev)) for b in batches])
+            for i in range(MESH2D_PERMUTATIONS)]
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    gaps = [_trajectory_gaps(r, single) for r in shuffled]
+    return single, {k: max(g[k] for g in gaps) for k in gaps[0]}
+
+
 def _beyond_noise(gap: dict, noise: dict) -> list:
     """The gaps above 3× the permuted run's (θ after the Adam steps: an
     entry near a zero gradient moves by ±lr a step with the sign of that
@@ -3553,7 +3646,6 @@ def check_parallel(seed: int, card: str, dev) -> dict:
     from superresolution_aniso_mri_tpu_torch.infer.packed_decoder import (
         make_packed_decoder)
     from superresolution_aniso_mri_tpu_torch.models import AEConfig
-    from superresolution_aniso_mri_tpu_torch.train import Trainer
 
     t_phase = time.perf_counter()
     out: dict = {"launches": {}, "kernel_err": 0.0}
@@ -3651,18 +3743,12 @@ def check_parallel(seed: int, card: str, dev) -> dict:
                                                         "models")):
             raise AssertionError("rank 0 wrote no last.models")
         # the single-process trajectory on the same global batches, and
-        # on the same batches with their pairs permuted: the float32
-        # reordering noise of this network on the card, the scale of the
-        # 2-rank run's gaps (its own halves sum in another order)
+        # the float32 reordering noise of this network on the card (the
+        # 2-rank run's halves sum in another order), all runs with
+        # cuDNN's deterministic algorithms
         batches = _dp_batches(seed, DP_STEPS, dev, _dp_spec())
-        perm = torch.randperm(DP_ARGS["batch_size"],
-                              generator=torch.Generator().manual_seed(seed))
-        single, shuffled = (
-            _record_steps(Trainer(dict(DP_ARGS, seed=seed), device=dev), bs)
-            for bs in (batches, [_permuted(b, perm.to(dev))
-                                 for b in batches]))
-        dp_gap, noise = (_trajectory_gaps(run, single)
-                         for run in (dp, shuffled))
+        single, noise = _single_and_noise(batches, seed, dev)
+        dp_gap = _trajectory_gaps(dp, single)
         out.update(
             dp_loss=dp["loss"].tolist(), single_loss=single["loss"].tolist(),
             **{f"dp_{k}_max_rel_gap": v for k, v in dp_gap.items()},
@@ -3671,8 +3757,9 @@ def check_parallel(seed: int, card: str, dev) -> dict:
             single_ms_per_step=float(single["ms"]))
         log(f"parallel c: 2 ranks on cuda:0 (gloo) vs 1 process, "
             f"{DP_STEPS} steps [{card}]: max rel gaps {json.dumps(dp_gap)}; "
-            f"the single process on the permuted pairs "
-            f"{json.dumps(noise)}; losses {dp['loss'].round(6).tolist()}")
+            f"the single process on the pairs permuted "
+            f"{MESH2D_PERMUTATIONS} ways {json.dumps(noise)}; cuDNN "
+            f"deterministic; losses {dp['loss'].round(6).tolist()}")
         bad = _beyond_noise(dp_gap, noise)
         if bad:
             raise AssertionError(f"the 2-rank trajectory differs from the "
@@ -3795,10 +3882,7 @@ def check_mesh2d(seed: int, card: str, dev) -> dict:
     ``[cuda:0, cuda:0]`` against the single process."""
     import tempfile
 
-    import torch
-
     from superresolution_aniso_mri_tpu_torch import parallel
-    from superresolution_aniso_mri_tpu_torch.train import Trainer
 
     spec = dict(_dp_spec(), steps=MESH2D_STEPS)
     out: dict = {}
@@ -3820,25 +3904,8 @@ def check_mesh2d(seed: int, card: str, dev) -> dict:
         raise AssertionError("the model ranks' replicated parameters or "
                              "BatchNorm statistics differ after the steps")
     out["mesh2d_replicas_bit_equal"] = len(replicas[0])
-    batches = _dp_batches(seed, MESH2D_STEPS, dev, spec)
-
-    def trajectory(bs):
-        return _record_steps(Trainer(dict(DP_ARGS, seed=seed), device=dev),
-                             bs)
-
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        single = trajectory(batches)
-        # the reordering noise: its largest gaps over several
-        # permutations (the loss after a few Adam steps moves by chance:
-        # one permuted run is too small a sample of it)
-        shuffled = [trajectory([_permuted(b, torch.randperm(
-            DP_ARGS["batch_size"], generator=torch.Generator().manual_seed(
-                seed + i)).to(dev)) for b in batches])
-            for i in range(MESH2D_PERMUTATIONS)]
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
+    single, noise = _single_and_noise(
+        _dp_batches(seed, MESH2D_STEPS, dev, spec), seed, dev)
     split = {k[len("split/"):]: int(v) for k, v in run.items()
              if k.startswith("split/")}
     for k, dim in split.items():
@@ -3846,8 +3913,6 @@ def check_mesh2d(seed: int, card: str, dev) -> dict:
                              == run[f"grad/{k}"].shape[dim]):
             raise AssertionError(f"{k}: the shard is not half the channels")
     gap = _trajectory_gaps(run, single)
-    noise = {k: max(g[k] for g in map(
-        lambda r: _trajectory_gaps(r, single), shuffled)) for k in gap}
     out.update(
         mesh2d_split_leaves=sum(d >= 0 for d in split.values()),
         mesh2d_replicated_leaves=sum(d < 0 for d in split.values()),
@@ -4097,6 +4162,130 @@ def check_figures(card: str, dev) -> dict:
         return {"figures": "no matplotlib: evaluate imports, a figure "
                            "call raises ModuleNotFoundError"}
     raise AssertionError("a figure drew without matplotlib")
+
+
+def _row_gaps(got: dict, want: dict) -> tuple:
+    """(the largest relative gap of two rows' aggregates, the aggregates
+    beyond ``QUALITY_CPU_RTOL`` relative plus one rounding step of the
+    rows' 5 decimals)."""
+    pairs = [(f"{k}.{m}", got[k][m], v) for k in ROW_METRICS if k in want
+             for m, v in want[k].items()]
+    return (max(abs(g - v) / max(abs(v), 1e-30) for _, g, v in pairs),
+            [n for n, g, v in pairs
+             if not abs(g - v) <= QUALITY_CPU_RTOL * abs(v) + 1e-5])
+
+
+def check_quality(seed: int, card: str, dev) -> dict:
+    """Phase 18 (see the module docstring): the port's
+    ``real-pipeline-quality`` end to end on the card at a reduced depth,
+    and ``quality-check``; the numbers of the ``phase18`` line and the
+    SSIM launches of their scoring and find-best paths."""
+    import glob
+    import tempfile
+
+    from superresolution_aniso_mri_tpu_torch.data.datasets import (
+        load_acdc_volumes, load_brain_volumes)
+    from superresolution_aniso_mri_tpu_torch.tools import (
+        quality_check, real_pipeline_quality)
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "docs", "quality_real_r4.jsonl")) as f:
+        want_keys = (set(json.loads(f.readlines()[1]))
+                     | set(JAX_ROW_LATER_KEYS))
+    out: dict = {"launches": {}, "kernel_err": 0.0}
+    old_root, old_tmp = os.environ.get("SR_DATA_ROOT"), tempfile.tempdir
+    _free_cuda()
+    with tempfile.TemporaryDirectory() as tmp:
+        counts = os.path.join(tmp, "launches.jsonl")
+        os.environ["SR_KERNEL_LAUNCHES_LOG"] = counts
+        tempfile.tempdir = tmp   # the tool's work directories
+        try:
+            for name, argv in QUALITY_ROWS.items():
+                open(counts, "w").close()
+                before = set(glob.glob(os.path.join(tmp, "sr_rpq_*")))
+
+                def run(argv=argv):
+                    return real_pipeline_quality.main(
+                        [*argv, "--keep", "--device", dev.type])
+                row, n, err, secs = _counted_scoring(run,
+                                                     f"phase 18 {name}")
+                work, = set(glob.glob(os.path.join(tmp, "sr_rpq_*"))) - before
+                with open(counts) as f:
+                    children = [json.loads(line) for line in f]
+                fb = sum(c["launches"]["ssim_slice"] for c in children
+                         if c["command"] == "find-best-model")
+                # predicted from the volumes: one SSIM launch a scored
+                # volume and method (the model, linear, bspline,
+                # lanczos); find-best scores the validation volumes,
+                # which share one shape and fit one chunk, with one
+                # launch for each numbered checkpoint (the epochs after
+                # the threshold: sweep_last - 1)
+                os.environ["SR_DATA_ROOT"] = os.path.join(work, "data")
+                test = (load_acdc_volumes("test") if name == "acdc" else
+                        load_brain_volumes("OASIS", 3, split="test",
+                                           include_hr_images=True))
+                extra = row["n_extra_test"] * (row["num_frames"] or 1)
+                want_n = 4 * (len(test) + extra)
+                sweep_last = int(argv[argv.index("--sweep_last") + 1])
+                if n != want_n or fb != sweep_last - 1:
+                    raise AssertionError(
+                        f"phase 18 {name}: {n} scoring and {fb} find-best "
+                        f"SSIM launches, predicted {want_n} and "
+                        f"{sweep_last - 1}")
+                if set(row) != want_keys:
+                    raise AssertionError(
+                        f"phase 18 {name}: row keys differ from JAX's: "
+                        f"{sorted(set(row) ^ want_keys)}")
+                for k in ROW_METRICS:
+                    _finite(row[k], f"phase 18 {name} {k}")
+                out["launches"][f"quality_{name}_score"] = n
+                out["launches"][f"quality_{name}_find_best"] = fb
+                out["kernel_err"] = max(out["kernel_err"], err)
+                out[name] = {k: row[k] for k in (
+                    "checkpoint", "compute_dtype", *ROW_METRICS,
+                    "beats_all", "beats_all_extra")}
+                out[name].update(test_volumes=len(test), extra_volumes=extra,
+                                 tool_s=secs)
+                if name == "oasis":
+                    # the same kept checkpoint scored on the CPU
+                    cpu = real_pipeline_quality.main(
+                        ["--reuse", work, "--checkpoint", row["checkpoint"],
+                         "--extra_test_volumes", str(row["n_extra_test"]),
+                         "--latent_interp", row["latent_interp"],
+                         "--device", "cpu"])
+                    gap, bad = _row_gaps(row, cpu)
+                    out["oasis_card_vs_cpu_max_rel_gap"] = gap
+                    log(f"quality {name}: card vs CPU on checkpoint "
+                        f"{row['checkpoint']}: max rel gap {gap:.3e}")
+                    if bad:
+                        raise AssertionError(
+                            f"phase 18: the card's and the CPU's scores of "
+                            f"one checkpoint differ: {bad}")
+                log(f"quality {name} [{card}]: " + json.dumps(out[name])
+                    + f"; SSIM launches: scoring {n}, find-best {fb}")
+            qc, n, err, secs = _counted_scoring(
+                lambda: quality_check.main([*QUALITY_CHECK_ARGV,
+                                            "--device", dev.type]),
+                "phase 18 quality-check")
+            if n != 4 * 3:
+                raise AssertionError(f"quality-check: {n} SSIM launches, "
+                                     f"predicted 12")
+            _finite(qc["model"], "quality-check model")
+            out["launches"]["quality_check_score"] = n
+            out["kernel_err"] = max(out["kernel_err"], err)
+            out["quality_check"] = dict(qc, tool_s=secs)
+            log(f"quality-check [{card}]: {json.dumps(qc)}")
+        finally:
+            tempfile.tempdir = old_tmp
+            os.environ.pop("SR_KERNEL_LAUNCHES_LOG", None)
+            if old_root is None:
+                os.environ.pop("SR_DATA_ROOT", None)
+            else:
+                os.environ["SR_DATA_ROOT"] = old_root
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 18: {out['phase_s']:.1f} s")
+    return out
 
 
 def _kernel_kind(name: str) -> str:
@@ -4373,12 +4562,17 @@ def main() -> int:
     figures = check_figures(card, dev)
     phase17_s = time.perf_counter() - t17 + loader["loader_phase_s"]
     log(f"phase 17: {phase17_s:.1f} s")
+    # ---- 18. the production-pipeline quality harness -------------------
+    quality = check_quality(args.seed, card, dev)
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"parallel": {k: v for k, v in par.items()
                                    if k != "launches"}}), flush=True)
     print(json.dumps({"phase17": {**mesh2d, **loader, **figures,
                                   "phase_s": phase17_s, "card": card}}),
+          flush=True)
+    print(json.dumps({"phase18": {**{k: v for k, v in quality.items()
+                                     if k != "launches"}, "card": card}}),
           flush=True)
     log(card)  # name and power limit, as nvidia-smi prints them
     print(json.dumps({"kernels": [{
@@ -4402,7 +4596,7 @@ def main() -> int:
                for k, v in families["launches"].items()},
             **labeled["launches"], **alpha["launches"],
             **evaluation["launches"], **prep["launches"],
-            **par["launches"]},
+            **par["launches"], **quality["launches"]},
         "max_abs_err": max(kcheck["max_abs_err"],
                            disk["find_best_kernel_err"],
                            percept["percept_kernel_err"],
@@ -4411,7 +4605,8 @@ def main() -> int:
                            labeled["kernel_err"],
                            alpha["kernel_err"],
                            evaluation["kernel_err"],
-                           prep["kernel_err"], par["kernel_err"]), "ok": True,
+                           prep["kernel_err"], par["kernel_err"],
+                           quality["kernel_err"]), "ok": True,
         "ms": kernel_ms, "ms_cold": kernel_cold_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "bound_share": bound_ms / kernel_ms,

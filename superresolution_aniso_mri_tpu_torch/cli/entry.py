@@ -11,7 +11,8 @@ archives, ``log_images/``, ``model_perf_ds<k>.npz``) and the same
 
 (``cli/__main__.py``). Training runs on ``--device`` (``cuda`` unless it
 says ``cpu``); the other commands' functions take ``device`` (None: the
-CUDA device). Without a card, and unless the CPU is asked for, every
+CUDA device), which ``find-best-model`` and ``fit-latent-taps`` also
+take as ``--device``. Without a card, and unless the CPU is asked for, every
 command raises ``device.resolve_device``'s error. ``fit_latent_taps``
 fits the learned latent tap table, and ``convert_reference_checkpoint``
 / ``export_reference_checkpoint`` read and write the reference's torch
@@ -476,8 +477,11 @@ def find_best_model(argv=None, device=None):
                         help="latent z-interpolation for the sweep's "
                              "synthesis — select checkpoints with the "
                              "scheme you will serve with")
+    parser.add_argument("--device", type=str, default=None,
+                        help="the sweep's device (default: the function's "
+                             "``device``, else cuda)")
     args = parser.parse_args(argv)
-    dev = resolve_device(device)
+    dev = resolve_device(args.device or device)
 
     exper_dir = os.path.expanduser(args.exper_dir)
     settings = load_settings(os.path.join(exper_dir, "settings.yaml"))
@@ -538,8 +542,11 @@ def fit_latent_taps(argv=None, device=None):
                              "gate weight selection (the returned table "
                              "is the best-holdout candidate, analytic "
                              "init included); 0 disables")
+    parser.add_argument("--device", type=str, default=None,
+                        help="the fit's device (default: the function's "
+                             "``device``, else cuda)")
     args = parser.parse_args(argv)
-    dev = resolve_device(device)
+    dev = resolve_device(args.device or device)
 
     exper_dir = os.path.expanduser(args.exper_dir)
     settings = load_settings(os.path.join(exper_dir, "settings.yaml"))

@@ -6,8 +6,16 @@
 - ``fit-perceptual-head`` (``fit_perceptual_head.py``): builds
   ``weights/perceptual_enc.npz`` from a trained experiment;
 - ``convert-lpips-weights`` (``convert_lpips_weights.py``): torchvision
-  VGG16 + the LPIPS lins → ``weights/lpips_vgg.npz``.
+  VGG16 + the LPIPS lins → ``weights/lpips_vgg.npz``;
+- ``real-pipeline-quality`` (``real_pipeline_quality.py``, children run
+  by ``_subproc.py``): the model against conventional interpolation
+  through the production commands on fabricated OASIS / dHCP / ACDC
+  trees;
+- ``quality-check`` (``quality_check.py``): the same comparison through
+  direct ``Trainer`` calls on phantoms.
 
 Ports of the JAX package's ``tools/`` scripts of those names, with their
 flags and defaults; the artifacts they write load in both packages.
+The quality harnesses run on ``--device`` (``cuda`` unless it says
+``cpu``).
 """

@@ -414,6 +414,7 @@ def test_dispatcher_runs_the_commands_and_names_the_missing_one(dirs,
                                 "find-best-model", "fit-latent-taps",
                                 "fit-perceptual-head",
                                 "generate-hr-volumes", "lpips-gap-study",
+                                "quality-check", "real-pipeline-quality",
                                 "serve-hr-volumes",
                                 "train-brain", "train-cardiac"]
     assert main([]) == 2 and main(["generate"]) == 2
@@ -421,7 +422,8 @@ def test_dispatcher_runs_the_commands_and_names_the_missing_one(dirs,
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["fit-latent-taps", "--exper_dir", dirs["jax"]])
     for cmd in (["lpips-gap-study"],
-                ["fit-perceptual-head", "--exper_dir", dirs["jax"]]):
+                ["fit-perceptual-head", "--exper_dir", dirs["jax"]],
+                ["quality-check"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(cmd)
     with pytest.raises(SystemExit, match="cardiac datasets only"):

@@ -1,8 +1,8 @@
 """PyTorch port on the card: the CUDA SSIM kernel against its plain
 version, the serving, scoring and training entry points on CUDA against
 the same calls on the CPU (the labeled MultiChannelAE path and the
-alpha families included), the perceptual tools, and the
-experiment-directory commands. Every test here needs an NVIDIA
+alpha families included), the perceptual tools, the
+experiment-directory commands and the quality harness. Every test here needs an NVIDIA
 GPU and skips without one.
 
 This file imports neither JAX nor the JAX package, so it runs where
@@ -890,6 +890,41 @@ def test_perceptual_tools_on_card_match_cpu(cuda):
         want = np.asarray(want)
         assert np.abs(np.asarray(rows[0][k]) - want).max() <= (
             1e-4 * np.abs(want).max()), k
+
+
+def test_real_pipeline_quality_row_on_card(cuda, tmp_path):
+    """``real-pipeline-quality`` through the port's CLI on the card at
+    the reduced OASIS row of ``chip_smoke.py`` phase 18 (the README
+    recipe's flags, 7 patients of 37 × 64², 4 epochs): it exits 0 and
+    appends one row with the keys of JAX's recorded row (r4 row 1, with
+    the four JAX's tool has written since) and finite metrics."""
+    import json
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    row_path = tmp_path / "row.jsonl"
+    env = dict(os.environ, TMPDIR=str(tmp_path), PYTHONPATH=os.pathsep.join(
+        p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+    r = subprocess.run(
+        [sys.executable, "-m", "superresolution_aniso_mri_tpu_torch.cli",
+         "real-pipeline-quality", "--dataset_shape", "OASIS",
+         "--n_patients", "7", "--num_slices", "37", "--inplane", "64",
+         "--phantom_noise", "0.03", "--loss_mode", "mse", "--latent_width",
+         "32", "--use_batchnorm", "0", "--lr_schedule", "--latent_interp",
+         "lanczos3", "--epochs", "4", "--sweep_last", "2",
+         "--extra_test_volumes", "2", "--json_out", str(row_path)],
+        cwd=repo, env=env, capture_output=True, text=True, timeout=900)
+    assert r.returncode == 0, r.stderr[-4000:]
+    with open(os.path.join(repo, "docs", "quality_real_r4.jsonl")) as f:
+        want = set(json.loads(f.readlines()[1])) | {
+            "score_noise", "aug_noise", "aug_blur", "max_grad_norm"}
+    rows = [json.loads(line) for line in row_path.read_text().splitlines()]
+    assert len(rows) == 1 and set(rows[0]) == want
+    for k in ("model", "model_all_slices", "best_conventional",
+              "model_extra", "best_conventional_extra"):
+        assert all(np.isfinite(v) for v in rows[0][k].values()), k
+    assert rows[0]["epochs"] == 4 and rows[0]["n_extra_test"] == 2
 
 
 def test_failed_capture_raises_without_eager_fallback(cuda, monkeypatch):

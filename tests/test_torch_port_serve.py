@@ -374,6 +374,9 @@ def test_port_imports_without_jax():
             "import superresolution_aniso_mri_tpu_torch.tools.lpips_gap_study\n"
             "import superresolution_aniso_mri_tpu_torch.tools.fit_perceptual_head\n"
             "import superresolution_aniso_mri_tpu_torch.tools.convert_lpips_weights\n"
+            "import superresolution_aniso_mri_tpu_torch.tools._subproc\n"
+            "import superresolution_aniso_mri_tpu_torch.tools.real_pipeline_quality\n"
+            "import superresolution_aniso_mri_tpu_torch.tools.quality_check\n"
             "import superresolution_aniso_mri_tpu_torch.data.masi\n"
             "import superresolution_aniso_mri_tpu_torch.data.acdc_aux\n"
             "import superresolution_aniso_mri_tpu_torch.evaluate.sr_seg_eval\n"
