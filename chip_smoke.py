@@ -244,12 +244,27 @@ Phases (any failure ends the run with a non-zero exit):
      the card per aggregate within ``QUALITY_CPU_RTOL``; then
      ``quality-check`` for 2 epochs. Its numbers go on the ``phase18``
      line.
+ 19. the measurement commands (``tools/{bench,infer_roofline,
+     train_bench,pipeline_bench,loader_bench}.py``), each a child
+     ``python -m superresolution_aniso_mri_tpu_torch.cli <command>`` on
+     the card as a user runs it (``MEASURE_ARGV``): ``bench`` at the full
+     case (its JSON line; ``ssim_selfcheck`` within 1e-3 of 1,
+     ``ssim_kernel_path`` "cuda", its SSIM launches through
+     ``SR_KERNEL_LAUNCHES_LOG`` equal to the 2 predicted),
+     ``infer-roofline --batches 1 8 --split --packed``, ``train-bench
+     --steps 10`` (six rows), ``pipeline-bench --epochs 3 --n_patients 7
+     --variants 0 1`` and ``loader-bench``. Every roofline share they
+     print must lie in (0, 1] (a share above 1 is a wrong FLOP or byte
+     count, never clamped), and every FLOP count must equal the same
+     function's count on the meta device in this process (shapes only).
+     Its numbers go on the ``phase19`` line.
 The main path (serve linear → score) runs with every kernel launch count
 set to 0 just before it and read just after; so do the train phase's
 path (serve the trained checkpoint → score), each find-best sweep of
 phase 7, phase 8's find-best, phase 9's scoring of the perceptual
 checkpoint and of the baselines, phase 10's scoring of the fitted
-table, phase 11's, 12's, 13's, 14's, 15's, 16's and 18's scoring paths
+table, phase 11's, 12's, 13's, 14's, 15's, 16's and 18's scoring paths,
+phase 19's bench
 (every pair each scored held against the plain version). The line
 before the last lists every kernel with its check, launches
 (``launches``: the main path; ``launches_by_path``: every counted path)
@@ -294,7 +309,10 @@ KERNEL_SHAPES = ((HR_SLICES, HW, HW), (8, 256, 256), (5, 129, 97),
                  # chunks (one OASIS validation volume's 13 kept slices
                  # padded to 16 → 46; 12 ACDC frames of 8 kept → 15)
                  (37, 64, 64), (15, 64, 64), (46, 64, 64),
-                 (12 * 15, 64, 64))
+                 (12 * 15, 64, 64),
+                 # phase 19's bench: ssim_selfcheck on 8 served slices
+                 # (its bf16_ssim_delta is the first shape's)
+                 (8, HW, HW))
 KERNEL_ATOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
@@ -436,6 +454,21 @@ JAX_ROW_LATER_KEYS = ("score_noise", "aug_noise", "aug_blur",
                       "max_grad_norm")
 ROW_METRICS = ("model", "model_all_slices", "best_conventional",
                "model_extra", "best_conventional_extra")
+
+# phase 19: the measurement commands, each run as a child process on the
+# card as a user runs it; every roofline share they print must read at
+# most SHARE_LIMIT (a share above it means a wrong FLOP or byte count)
+MEASURE_ARGV = {
+    "bench": [],
+    "infer-roofline": ["--batches", "1", "8", "--split", "--packed"],
+    "train-bench": ["--steps", "10"],
+    "pipeline-bench": ["--epochs", "3", "--n_patients", "7",
+                       "--variants", "0", "1"],
+    "loader-bench": [],
+}
+SHARE_LIMIT = 1.0
+# bench's SSIM calls: the self-check and bf16_ssim_delta (bench.py:200-209)
+BENCH_SSIM_LAUNCHES = 2
 
 
 def log(msg: str) -> None:
@@ -3954,21 +3987,6 @@ def _loader(mode: str):
         os.environ.pop("SRL_DISABLE_NATIVE", None)
 
 
-def _cpu_model() -> str:
-    """The host CPU's model name (``/proc/cpuinfo``), else its machine
-    type."""
-    import platform
-
-    try:
-        with open("/proc/cpuinfo") as f:
-            for line in f:
-                if line.startswith("model name"):
-                    return line.split(":", 1)[1].strip()
-    except OSError:
-        pass
-    return platform.machine()
-
-
 def check_native_loader(tmp: str, seed: int, card: str) -> dict:
     """Phase 17b (see the module docstring), on phase 8's OASIS tree."""
     import glob
@@ -3978,11 +3996,12 @@ def check_native_loader(tmp: str, seed: int, card: str) -> dict:
                                                           native_loader)
     from superresolution_aniso_mri_tpu_torch.data.datasets import (
         _read_images_parallel, load_brain_volumes)
+    from superresolution_aniso_mri_tpu_torch.tools.loader_bench import host
     from superresolution_aniso_mri_tpu_torch.utils import read_image
 
     t_phase = time.perf_counter()
     turns = ("numpy", "native", "native", "numpy")
-    out: dict = {"host": f"{_cpu_model()}, {os.cpu_count()} cores"}
+    out: dict = {"host": host()}
     t0 = time.perf_counter()
     if not native_loader.available():
         raise AssertionError("the native loader did not build")
@@ -4288,6 +4307,170 @@ def check_quality(seed: int, card: str, dev) -> dict:
     return out
 
 
+def _measure_child(name: str, tmp: str, dev) -> tuple:
+    """(stdout, kernel launches, seconds) of ``python -m
+    superresolution_aniso_mri_tpu_torch.cli name MEASURE_ARGV[name]``
+    (``--device`` but for the host-only loader-bench), its launches read
+    from ``SR_KERNEL_LAUNCHES_LOG``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    counts = os.path.join(tmp, f"{name}.launches.jsonl")
+    env = dict(os.environ, SR_KERNEL_LAUNCHES_LOG=counts,
+               PYTHONPATH=os.pathsep.join(
+                   p for p in (here, os.environ.get("PYTHONPATH")) if p))
+    argv = list(MEASURE_ARGV[name])
+    if name != "loader-bench":
+        argv += ["--device", dev.type]
+    if name in ("infer-roofline", "train-bench"):
+        argv += ["--json_out", os.path.join(tmp, f"{name}.json")]
+    cmd = [sys.executable, "-m", "superresolution_aniso_mri_tpu_torch.cli",
+           name, *argv]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True,
+                       text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"phase 19: {name} exited {r.returncode}:\n"
+                             + r.stdout[-3000:] + r.stderr[-3000:])
+    for line in r.stdout.splitlines():
+        log(f"  [{name}] {line}")
+    log(f"phase 19: {name} took {secs:.1f} s")
+    with open(counts) as f:
+        launches = [json.loads(line)["launches"] for line in f]
+    return r.stdout, launches[-1], secs
+
+
+def _over_limit(shares: dict) -> list:
+    """The shares of ``shares`` above ``SHARE_LIMIT``, or not finite."""
+    return [f"{k}={v}" for k, v in shares.items()
+            if not (0.0 < v <= SHARE_LIMIT)]
+
+
+def check_measurement(card: str, dev) -> dict:
+    """Phase 19 (see the module docstring): the five measurement commands
+    as children; their numbers, the SSIM launches of ``bench``, and
+    their FLOP counts against the same functions counted on the meta
+    device in this process (shapes only)."""
+    import re
+    import tempfile
+
+    import torch
+
+    from superresolution_aniso_mri_tpu_torch.models import AEConfig
+    from superresolution_aniso_mri_tpu_torch.tools import (bench,
+                                                           infer_roofline,
+                                                           train_bench)
+
+    t_phase = time.perf_counter()
+    meta = torch.device("meta")
+    out: dict = {"card": card, "command_s": {}}
+    _free_cuda()
+    with tempfile.TemporaryDirectory() as tmp:
+        # bench: one JSON line, the SSIM kernel through its dispatch
+        stdout, launches, out["command_s"]["bench"] = _measure_child(
+            "bench", tmp, dev)
+        line = json.loads(stdout.strip().splitlines()[-1])
+        n = launches["ssim_slice"]
+        if abs(line["ssim_selfcheck"] - 1.0) > 1e-3:
+            raise AssertionError(f"bench: ssim_selfcheck "
+                                 f"{line['ssim_selfcheck']}")
+        want_path = "cuda" if dev.type == "cuda" else "plain"
+        if line["ssim_kernel_path"] != want_path:
+            raise AssertionError(f"bench: ssim_kernel_path "
+                                 f"{line['ssim_kernel_path']!r}")
+        if dev.type == "cuda" and n != BENCH_SSIM_LAUNCHES:
+            raise AssertionError(f"bench: {n} SSIM launches, predicted "
+                                 f"{BENCH_SSIM_LAUNCHES}")
+        if not (np.isfinite(line["value"]) and line["value"] > 0):
+            raise AssertionError(f"bench: value {line['value']}")
+        out["bench"] = line
+        out["launches"] = {"bench": n}
+
+        # infer-roofline: the volume's count against the meta count
+        _, _, out["command_s"]["infer-roofline"] = _measure_child(
+            "infer-roofline", tmp, dev)
+        with open(os.path.join(tmp, "infer-roofline.json")) as f:
+            roof = json.load(f)
+        net, kept, alphas = infer_roofline.volume_case(
+            AEConfig(**bench.BENCH_CFG, compute_dtype="bfloat16"),
+            infer_roofline.NUM_LR_SLICES, infer_roofline.HW,
+            infer_roofline.DS, meta)
+        want = infer_roofline.volume_flops(net, kept, alphas)
+        if roof["flops_per_volume"] != want:
+            raise AssertionError(f"infer-roofline: {roof['flops_per_volume']}"
+                                 f" FLOPs a volume, {want} on the meta "
+                                 f"device")
+        shares = {"floor_share": roof["floor_share"],
+                  "hbm_share": roof["hbm_share"],
+                  **{f"{tag} {k}": v for tag, row in roof["batched"].items()
+                     for k, v in row.items() if k.endswith("share")}}
+        if "split" in roof:
+            shares["decode_floor_share"] = roof["split"]["decode_floor_share"]
+        bad = _over_limit(shares)
+        if bad:
+            raise AssertionError(f"infer-roofline: shares out of (0, 1]: "
+                                 f"{bad}")
+        out["infer_roofline"] = roof
+
+        # train-bench: six rows, each count against the meta count
+        _, _, out["command_s"]["train-bench"] = _measure_child(
+            "train-bench", tmp, dev)
+        with open(os.path.join(tmp, "train-bench.json")) as f:
+            rows = json.load(f)
+        by_name = {v[0]: v for v in train_bench.SHAPES.values()}
+        argv = MEASURE_ARGV["train-bench"]
+        configs = (argv[argv.index("--configs") + 1:] if "--configs" in argv
+                   else train_bench.SHAPES)
+        if len(rows) != len(train_bench.DTYPES) * len(configs):
+            raise AssertionError(f"train-bench: {len(rows)} rows")
+        for row in rows:
+            _, w, lw, d, lat, b = by_name[row["name"]]
+            want = train_bench.meta_step_flops(
+                train_bench.trainer_args(w, lw, d, lat, b, row["dtype"]),
+                w, b)
+            if row["flops"] != want:
+                raise AssertionError(f"train-bench {row['name']} "
+                                     f"{row['dtype']}: {row['flops']} "
+                                     f"FLOPs a step, {want} on the meta "
+                                     f"device")
+            bad = _over_limit({"mfu_vs_bf16_peak": row["mfu_vs_bf16_peak"],
+                               "hbm_bw_fraction": row["hbm_bw_fraction"],
+                               "floor_share": 1.0 / row["gap_to_floor"]})
+            if bad:
+                raise AssertionError(f"train-bench {row['name']} "
+                                     f"{row['dtype']}: shares out of "
+                                     f"(0, 1]: {bad}")
+        out["train_bench"] = rows
+
+        # pipeline-bench: the training CLI with the device cache off, on
+        stdout, _, out["command_s"]["pipeline-bench"] = _measure_child(
+            "pipeline-bench", tmp, dev)
+        pipe = {m.group(1): {"first_epoch_s": float(m.group(2)),
+                             "steady_epoch_s": float(m.group(3)),
+                             "ms_per_step": float(m.group(4))}
+                for m in re.finditer(
+                    r"cache=\s*(\S+): first epoch\s+([\d.]+)s .*? steady"
+                    r"\s+([\d.]+)s/epoch \(~\s*([\d.]+) ms/step", stdout)}
+        if sorted(pipe) != ["0", "1"]:
+            raise AssertionError(f"pipeline-bench: variants {sorted(pipe)}")
+        out["pipeline_bench"] = pipe
+
+        # loader-bench: host only
+        stdout, _, out["command_s"]["loader-bench"] = _measure_child(
+            "loader-bench", tmp, dev)
+        ingest = re.search(r"python ([\d.]+)s, native ([\d.]+)s", stdout)
+        gather = re.search(r"python ([\d.]+)ms, native ([\d.]+)ms", stdout)
+        if not (ingest and gather):
+            raise AssertionError("loader-bench: no ingest / gather line")
+        out["loader_bench"] = {
+            "ingest_python_s": float(ingest.group(1)),
+            "ingest_native_s": float(ingest.group(2)),
+            "gather_python_ms": float(gather.group(1)),
+            "gather_native_ms": float(gather.group(2))}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 19 [{card}]: {out['phase_s']:.1f} s")
+    return out
+
+
 def _kernel_kind(name: str) -> str:
     """Bucket of a device event by its kernel name."""
     low = name.lower()
@@ -4564,6 +4747,8 @@ def main() -> int:
     log(f"phase 17: {phase17_s:.1f} s")
     # ---- 18. the production-pipeline quality harness -------------------
     quality = check_quality(args.seed, card, dev)
+    # ---- 19. the measurement commands ----------------------------------
+    measure = check_measurement(card, dev)
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"parallel": {k: v for k, v in par.items()
@@ -4574,6 +4759,8 @@ def main() -> int:
     print(json.dumps({"phase18": {**{k: v for k, v in quality.items()
                                      if k != "launches"}, "card": card}}),
           flush=True)
+    print(json.dumps({"phase19": {k: v for k, v in measure.items()
+                                  if k != "launches"}}), flush=True)
     log(card)  # name and power limit, as nvidia-smi prints them
     print(json.dumps({"kernels": [{
         "name": "ssim_slice", "route": "cuda",
@@ -4596,7 +4783,8 @@ def main() -> int:
                for k, v in families["launches"].items()},
             **labeled["launches"], **alpha["launches"],
             **evaluation["launches"], **prep["launches"],
-            **par["launches"], **quality["launches"]},
+            **par["launches"], **quality["launches"],
+            **measure["launches"]},
         "max_abs_err": max(kcheck["max_abs_err"],
                            disk["find_best_kernel_err"],
                            percept["percept_kernel_err"],

@@ -8,9 +8,11 @@ find-best-model, fit-latent-taps, and the JAX package's tools
 convert-reference-checkpoint (a reference torch experiment → SRTPU1),
 export-reference-checkpoint (a checkpoint → a reference torch
 .models), lpips-gap-study, fit-perceptual-head,
-convert-lpips-weights, and the quality harnesses real-pipeline-quality
-and quality-check (``tools/``). Exits 0 on success, as the JAX
-package's console scripts do.
+convert-lpips-weights, the quality harnesses real-pipeline-quality
+and quality-check, and the measurement commands bench (the root
+``bench.py``), infer-roofline, train-bench, pipeline-bench and
+loader-bench (``tools/``; on the card unless ``--device cpu``). Exits 0
+on success, as the JAX package's console scripts do.
 
 With ``SR_KERNEL_LAUNCHES_LOG`` set to a path, a command appends one
 JSON line there when it returns: the command and the launches of each
@@ -23,8 +25,10 @@ import json
 import os
 import sys
 
-from ..tools import (convert_lpips_weights, fit_perceptual_head,
-                     lpips_gap_study, quality_check, real_pipeline_quality)
+from ..tools import (bench, convert_lpips_weights, fit_perceptual_head,
+                     infer_roofline, loader_bench, lpips_gap_study,
+                     pipeline_bench, quality_check, real_pipeline_quality,
+                     train_bench)
 from . import entry
 
 COMMANDS = {
@@ -41,6 +45,11 @@ COMMANDS = {
     "convert-lpips-weights": convert_lpips_weights.main,
     "real-pipeline-quality": real_pipeline_quality.main,
     "quality-check": quality_check.main,
+    "bench": bench.main,
+    "infer-roofline": infer_roofline.main,
+    "train-bench": train_bench.main,
+    "pipeline-bench": pipeline_bench.main,
+    "loader-bench": loader_bench.main,
 }
 
 

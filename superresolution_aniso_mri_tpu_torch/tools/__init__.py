@@ -12,10 +12,21 @@
   through the production commands on fabricated OASIS / dHCP / ACDC
   trees;
 - ``quality-check`` (``quality_check.py``): the same comparison through
-  direct ``Trainer`` calls on phantoms.
+  direct ``Trainer`` calls on phantoms;
+- the measurement commands, beside the card's name and power limit,
+  with the roofline arithmetic of ``roofline.py`` (the H100's peaks,
+  FLOPs counted from shapes, least bytes): ``bench`` (``bench.py``, the
+  repo's root ``bench.py``: serve latency of one OASIS volume, one JSON
+  line), ``infer-roofline`` (``infer_roofline.py``: FLOPs, bytes and
+  floors per served volume, batched throughput), ``train-bench``
+  (``train_bench.py``: train-step ms, FLOPs and floors at the three
+  headline configs), ``pipeline-bench`` (``pipeline_bench.py``: the
+  training CLI's ms/step with the device cache on and off, run as
+  children) and ``loader-bench`` (``loader_bench.py``: the native host
+  loader against numpy, host only).
 
 Ports of the JAX package's ``tools/`` scripts of those names, with their
 flags and defaults; the artifacts they write load in both packages.
-The quality harnesses run on ``--device`` (``cuda`` unless it says
-``cpu``).
+The quality harnesses and the measurement commands run on ``--device``
+(``cuda`` unless it says ``cpu``; ``loader-bench`` is host only).
 """

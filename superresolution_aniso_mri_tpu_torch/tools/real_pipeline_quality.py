@@ -550,6 +550,10 @@ def main(argv=None):
         raise SystemExit("--score_noise requires --reuse without "
                          "--extend (it re-scores a kept model, never "
                          "retrains)")
+    if args.checkpoint is not None and not args.reuse:
+        # a pinned checkpoint names an epoch of a kept experiment: fail
+        # before any fabrication or training child, not after them
+        raise SystemExit("--checkpoint requires --reuse")
     if args.downsample_steps is None:
         args.downsample_steps = {"ACDC": 2, "dHCP": 4}.get(
             args.dataset_shape, 3)

@@ -408,14 +408,16 @@ def test_dispatcher_runs_the_commands_and_names_the_missing_one(dirs,
     from superresolution_aniso_mri_tpu_torch.cli.__main__ import (COMMANDS,
                                                                   main)
 
-    assert sorted(COMMANDS) == ["convert-lpips-weights",
+    assert sorted(COMMANDS) == ["bench", "convert-lpips-weights",
                                 "convert-reference-checkpoint",
                                 "export-reference-checkpoint",
                                 "find-best-model", "fit-latent-taps",
                                 "fit-perceptual-head",
-                                "generate-hr-volumes", "lpips-gap-study",
+                                "generate-hr-volumes", "infer-roofline",
+                                "loader-bench", "lpips-gap-study",
+                                "pipeline-bench",
                                 "quality-check", "real-pipeline-quality",
-                                "serve-hr-volumes",
+                                "serve-hr-volumes", "train-bench",
                                 "train-brain", "train-cardiac"]
     assert main([]) == 2 and main(["generate"]) == 2
     # the commands run on the card unless the caller asks for the CPU
@@ -423,7 +425,8 @@ def test_dispatcher_runs_the_commands_and_names_the_missing_one(dirs,
         main(["fit-latent-taps", "--exper_dir", dirs["jax"]])
     for cmd in (["lpips-gap-study"],
                 ["fit-perceptual-head", "--exper_dir", dirs["jax"]],
-                ["quality-check"]):
+                ["quality-check"], ["bench"], ["infer-roofline"],
+                ["train-bench"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(cmd)
     with pytest.raises(SystemExit, match="cardiac datasets only"):

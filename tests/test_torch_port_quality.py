@@ -351,6 +351,19 @@ def test_guards_match_jax(monkeypatch, tmp_path, argv, message):
         prpq.main([*argv, "--device", "cpu"])
 
 
+def test_checkpoint_without_reuse_fails_before_any_work(monkeypatch):
+    """The port raises JAX's ``--checkpoint requires --reuse`` before it
+    fabricates a tree or runs a child (JAX raises it after both)."""
+    def no_work(*a, **k):
+        raise AssertionError("--checkpoint without --reuse got past its "
+                             "guard")
+
+    monkeypatch.setattr(prpq, "_fabricate", no_work)
+    monkeypatch.setattr(prpq, "_run", no_work)
+    with pytest.raises(SystemExit, match="--checkpoint requires --reuse"):
+        prpq.main(["--checkpoint", "5", "--device", "cpu"])
+
+
 # ---------------------------------------------------------------------------
 # run_child
 # ---------------------------------------------------------------------------

@@ -377,6 +377,12 @@ def test_port_imports_without_jax():
             "import superresolution_aniso_mri_tpu_torch.tools._subproc\n"
             "import superresolution_aniso_mri_tpu_torch.tools.real_pipeline_quality\n"
             "import superresolution_aniso_mri_tpu_torch.tools.quality_check\n"
+            "import superresolution_aniso_mri_tpu_torch.tools.roofline\n"
+            "import superresolution_aniso_mri_tpu_torch.tools.bench\n"
+            "import superresolution_aniso_mri_tpu_torch.tools.infer_roofline\n"
+            "import superresolution_aniso_mri_tpu_torch.tools.train_bench\n"
+            "import superresolution_aniso_mri_tpu_torch.tools.pipeline_bench\n"
+            "import superresolution_aniso_mri_tpu_torch.tools.loader_bench\n"
             "import superresolution_aniso_mri_tpu_torch.data.masi\n"
             "import superresolution_aniso_mri_tpu_torch.data.acdc_aux\n"
             "import superresolution_aniso_mri_tpu_torch.evaluate.sr_seg_eval\n"
@@ -437,4 +443,6 @@ def test_port_sources_import_nothing_of_the_jax_package():
             "fit_perceptual_head.py", "distributed.py", "mesh.py",
             "packed_decoder.py", "native_loader.py", "plots.py",
             "journal2.py", "spie2021.py", "loss_curves.py",
-            "convert_lpips_weights.py"} <= set(scanned)
+            "convert_lpips_weights.py", "roofline.py", "bench.py",
+            "infer_roofline.py", "train_bench.py", "pipeline_bench.py",
+            "loader_bench.py"} <= set(scanned)
