@@ -231,17 +231,21 @@ Phases (any failure ends the run with a non-zero exit):
      ``real-pipeline-quality`` end to end on the card, in a temp dir,
      for the README's OASIS recipe row (7 patients of 37 × 64², σ 0.03,
      MSE, latent width 32, no BN, the cosine schedule, lanczos3 serving,
-     4 epochs, ``--sweep_last 2``, 2 extra volumes) and its cardiac
+     4 epochs, ``--sweep_last 2``, 2 extra volumes), its cardiac
      throughput row (7 cines of 6 × 15 × 64², bf16, lanczos3, 2 epochs,
-     1 extra cine): fabrication, the training and find-best children
+     1 extra cine), its dHCP 4x row at σ 0.03 with ``--aug_noise
+     --max_grad_norm 1.0`` (7 patients of 37 × 256², latent width 128,
+     no BN, the cosine schedule, lanczos3, 2 epochs, 1 extra volume)
+     and its cardiac float32 row served with ``--tta flips`` (cut as the
+     bf16 row): fabrication, the training and find-best children
      (the port's CLI; their SSIM launches through
      ``SR_KERNEL_LAUNCHES_LOG``), the scoring in this process. Each row
      has the keys of JAX's recorded row (r4 row 1, with those JAX's
      tool has written since) and finite metrics; the SSIM launches of
      the scoring and of find-best equal the count predicted from the
      volumes (every pair the scoring scores held against the plain
-     version); the kept OASIS checkpoint scored on the CPU agrees with
-     the card per aggregate within ``QUALITY_CPU_RTOL``; then
+     version); the kept OASIS and TTA checkpoints scored on the CPU
+     agree with the card per aggregate within ``QUALITY_CPU_RTOL``; then
      ``quality-check`` for 2 epochs. Its numbers go on the ``phase18``
      line.
  19. the measurement commands (``tools/{bench,infer_roofline,
@@ -310,6 +314,10 @@ KERNEL_SHAPES = ((HR_SLICES, HW, HW), (8, 256, 256), (5, 129, 97),
                  # padded to 16 → 46; 12 ACDC frames of 8 kept → 15)
                  (37, 64, 64), (15, 64, 64), (46, 64, 64),
                  (12 * 15, 64, 64),
+                 # phase 18's dHCP entry: its scored 37 x 256² volumes
+                 # and find-best's chunks (a validation volume's 10
+                 # kept slices padded to 12 → 45, one volume a chunk)
+                 (37, 256, 256), (45, 256, 256),
                  # phase 19's bench: ssim_selfcheck on 8 served slices
                  # (its bf16_ssim_delta is the first shape's)
                  (8, HW, HW))
@@ -426,12 +434,16 @@ PARALLEL_SSIM_ATOL = 6e-8
 # phases 16c and 17a
 MESH2D_STEPS, MESH2D_PERMUTATIONS = 5, 3
 # phase 18: the production-pipeline quality harness at a reduced depth.
-# The README's OASIS recipe row (docs/quality_real_r4.jsonl row 1) and
-# the cardiac throughput row (row 4, bfloat16) at their widths and
-# shapes, cut to 7 patients and 4 / 2 epochs; quality-check for 2
-# epochs. The kept OASIS checkpoint scored on the card and on the CPU
-# agrees per aggregate within QUALITY_CPU_RTOL (relative, plus one
-# rounding step of the row's 5 decimals)
+# The README's OASIS recipe row (docs/quality_real_r4.jsonl row 1), the
+# cardiac throughput row (row 4, bfloat16), the dHCP 4x row at sigma
+# 0.03 with the noise augmentation and the clip
+# (docs/quality_real_r5.jsonl row 1: 256², latent width 128) and the
+# cardiac float32 row served with TTA flips
+# (docs/quality_real_r3.jsonl row 32) at their widths and shapes, cut to
+# 7 patients (the tool's least) and 4 / 2 epochs; quality-check for 2
+# epochs. The kept OASIS and TTA checkpoints scored on the card and on
+# the CPU agree per aggregate within QUALITY_CPU_RTOL (relative, plus
+# one rounding step of the row's 5 decimals)
 QUALITY_ROWS = {
     "oasis": ["--dataset_shape", "OASIS", "--n_patients", "7",
               "--num_slices", "37", "--inplane", "64", "--phantom_noise",
@@ -445,7 +457,28 @@ QUALITY_ROWS = {
              "--compute_dtype", "bfloat16", "--train_latent_interp",
              "lanczos3", "--latent_interp", "lanczos3", "--epochs", "2",
              "--sweep_last", "2", "--extra_test_volumes", "1"],
+    "dhcp": ["--dataset_shape", "dHCP", "--n_patients", "7", "--num_slices",
+             "37", "--inplane", "256", "--phantom_noise", "0.03",
+             "--loss_mode", "mse", "--latent_width", "128",
+             "--use_batchnorm", "0", "--lr_schedule", "--train_latent_interp",
+             "lanczos3", "--latent_interp", "lanczos3", "--aug_noise",
+             "--max_grad_norm", "1.0", "--epochs", "2", "--sweep_last", "2",
+             "--extra_test_volumes", "1"],
+    "acdc_f32_tta": ["--dataset_shape", "ACDC", "--n_patients", "7",
+                     "--num_slices", "15", "--inplane", "64", "--num_frames",
+                     "6", "--phantom_noise", "0.03", "--loss_mode", "mse",
+                     "--latent_width", "32", "--train_latent_interp",
+                     "lanczos3", "--latent_interp", "lanczos3", "--tta",
+                     "flips", "--epochs", "2", "--sweep_last", "2",
+                     "--extra_test_volumes", "1"],
 }
+# the rows whose kept checkpoint is scored on the CPU too
+QUALITY_CPU_ROWS = ("oasis", "acdc_f32_tta")
+# find-best's chunks a numbered checkpoint: the validation volumes share
+# one chunk, but at 256² one volume's in-flight decode (32 slices at 32
+# channels, 4x headroom: 1.07 GB) fills the sweep's 1 GiB budget, so each
+# of the dHCP tree's 2 validation volumes takes a chunk of its own
+QUALITY_FIND_BEST_CHUNKS = {"dhcp": 2}
 QUALITY_CHECK_ARGV = ["--epochs", "2"]
 QUALITY_CPU_RTOL = 1e-4
 # the keys JAX's tool writes that its recorded r4 rows predate (its r5
@@ -4236,22 +4269,27 @@ def check_quality(seed: int, card: str, dev) -> dict:
                          if c["command"] == "find-best-model")
                 # predicted from the volumes: one SSIM launch a scored
                 # volume and method (the model, linear, bspline,
-                # lanczos); find-best scores the validation volumes,
-                # which share one shape and fit one chunk, with one
-                # launch for each numbered checkpoint (the epochs after
-                # the threshold: sweep_last - 1)
+                # lanczos; TTA flips average the model's four syntheses
+                # before one scoring); find-best scores the validation
+                # volumes with one launch a chunk for each numbered
+                # checkpoint (the epochs after the threshold:
+                # sweep_last - 1)
                 os.environ["SR_DATA_ROOT"] = os.path.join(work, "data")
-                test = (load_acdc_volumes("test") if name == "acdc" else
-                        load_brain_volumes("OASIS", 3, split="test",
+                test = (load_acdc_volumes("test")
+                        if row["dataset_shape"] == "ACDC" else
+                        load_brain_volumes(row["dataset_shape"],
+                                           row["downsample_steps"],
+                                           split="test",
                                            include_hr_images=True))
                 extra = row["n_extra_test"] * (row["num_frames"] or 1)
                 want_n = 4 * (len(test) + extra)
                 sweep_last = int(argv[argv.index("--sweep_last") + 1])
-                if n != want_n or fb != sweep_last - 1:
+                want_fb = (QUALITY_FIND_BEST_CHUNKS.get(name, 1)
+                           * (sweep_last - 1))
+                if n != want_n or fb != want_fb:
                     raise AssertionError(
                         f"phase 18 {name}: {n} scoring and {fb} find-best "
-                        f"SSIM launches, predicted {want_n} and "
-                        f"{sweep_last - 1}")
+                        f"SSIM launches, predicted {want_n} and {want_fb}")
                 if set(row) != want_keys:
                     raise AssertionError(
                         f"phase 18 {name}: row keys differ from JAX's: "
@@ -4262,19 +4300,20 @@ def check_quality(seed: int, card: str, dev) -> dict:
                 out["launches"][f"quality_{name}_find_best"] = fb
                 out["kernel_err"] = max(out["kernel_err"], err)
                 out[name] = {k: row[k] for k in (
-                    "checkpoint", "compute_dtype", *ROW_METRICS,
+                    "checkpoint", "compute_dtype", "tta", *ROW_METRICS,
                     "beats_all", "beats_all_extra")}
                 out[name].update(test_volumes=len(test), extra_volumes=extra,
                                  tool_s=secs)
-                if name == "oasis":
+                if name in QUALITY_CPU_ROWS:
                     # the same kept checkpoint scored on the CPU
                     cpu = real_pipeline_quality.main(
                         ["--reuse", work, "--checkpoint", row["checkpoint"],
                          "--extra_test_volumes", str(row["n_extra_test"]),
                          "--latent_interp", row["latent_interp"],
+                         *(["--tta", row["tta"]] if row["tta"] else []),
                          "--device", "cpu"])
                     gap, bad = _row_gaps(row, cpu)
-                    out["oasis_card_vs_cpu_max_rel_gap"] = gap
+                    out[f"{name}_card_vs_cpu_max_rel_gap"] = gap
                     log(f"quality {name}: card vs CPU on checkpoint "
                         f"{row['checkpoint']}: max rel gap {gap:.3e}")
                     if bad:

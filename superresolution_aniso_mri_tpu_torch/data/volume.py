@@ -4,7 +4,8 @@ helpers, and the slice-pairing helpers of the triplet sampler.
 A numpy/scipy copy of ``superresolution_aniso_mri_tpu/data/volume.py``
 (``Volume``, ``rescale_intensities``, ``simulate_thick_slices``,
 ``create_lr_volume``, ``apply_2d_zoom_3d/_4d``,
-``get_random_adjacent_slice``, ``determine_interpol_coefficients``), so
+``get_random_adjacent_slice``, ``determine_interpol_coefficients``,
+``get_paired_frames``, ``get_paired_slices``), so
 the port imports nothing of the JAX package.
 """
 from __future__ import annotations
@@ -154,3 +155,29 @@ def determine_interpol_coefficients(sliceid_from: int, sliceid_to: int,
     a_from = 1.0 - (sliceid_between - sliceid_from) / gap
     a_to = 1.0 - (sliceid_to - sliceid_between) / gap
     return float(a_from), float(a_to)
+
+
+def get_paired_frames(num_frames: int, rs):
+    """Temporal frame pairing: anchor all pairs on frame 0 or the last
+    frame, chosen at random (reference: datasets/common.py:47-56)."""
+    if int(rs.randint(2)) == 0:
+        frames_from = np.repeat(np.array([0]), num_frames)
+        frames_to = np.append(np.arange(1, num_frames),
+                              np.array([num_frames - 1]))
+    else:
+        frames_from = np.repeat(np.array([num_frames - 1]), num_frames)
+        frames_to = np.append(np.arange(0, num_frames - 1), np.array([0]))
+    return frames_from, frames_to
+
+
+def get_paired_slices(num_slices: int, rs=None):
+    """Adjacent slice pairing (+one random 'joker' self-pair), randomly
+    reversed (reference: datasets/common.py:59-69). ``rs`` defaults to a
+    fresh ``RandomState(1234)``, so the pairing is deterministic."""
+    rand = rs if rs is not None else np.random.RandomState(1234)
+    joker = int(rand.randint(num_slices))
+    s1 = np.append(np.arange(0, num_slices - 1), np.array([joker]))
+    s2 = np.append(np.arange(1, num_slices), np.array([joker]))
+    if int(rand.randint(2)) == 0:
+        return s1, s2
+    return s2, s1

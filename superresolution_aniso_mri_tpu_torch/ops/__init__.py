@@ -6,7 +6,7 @@ from .lap_pyramid import lap_loss, laplacian_pyramid
 from .losses import (LANCZOS3_OFFSETS, bce_sum_over_batch,
                      catmull_rom_weights, kl_standard_normal,
                      lanczos3_weights, latent_mix, latent_mix_cubic,
-                     latent_mix_lanczos3, mse)
+                     l1, latent_mix_lanczos3, mse)
 from .lpips import (get_lpips_params, init_lpips_params, load_lin_weights,
                     load_lpips_params, lpips_distance, lpips_loss,
                     lpips_weights_info)
@@ -22,6 +22,7 @@ __all__ = [
     "catmull_rom_weights", "dice_loss", "kl_standard_normal",
     "enc_lpips_distance", "enc_perceptual_loss", "gaussian_filter2d",
     "get_enc_perceptual_params", "get_lpips_params", "init_lpips_params",
+    "l1",
     "lanczos3_weights", "lap_loss", "laplacian_pyramid", "latent_mix",
     "latent_mix_cubic", "latent_mix_lanczos3", "load_enc_perceptual",
     "load_lin_weights", "load_lpips_params", "lpips_distance", "lpips_loss",

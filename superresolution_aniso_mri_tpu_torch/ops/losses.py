@@ -1,7 +1,7 @@
 """Elementary losses, latent mixing and the tap-weight kernels of the
 multi-tap schemes.
 
-Port of ``superresolution_aniso_mri_tpu/ops/losses.py`` (``mse``,
+Port of ``superresolution_aniso_mri_tpu/ops/losses.py`` (``mse``, ``l1``,
 ``bce_sum_over_batch``, ``kl_standard_normal``, ``latent_mix``, ``catmull_rom_weights``, ``LANCZOS3_OFFSETS``,
 ``lanczos3_weights``, ``latent_mix_cubic``, ``latent_mix_lanczos3``).
 Weights are computed in the dtype of ``t`` (float32 at every caller).
@@ -26,6 +26,12 @@ def mse(pred: torch.Tensor, target: torch.Tensor,
     if mask is not None:
         d = d * mask
     return global_mean(d)
+
+
+def l1(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Mean absolute error (in a sharded train step over every rank's
+    elements)."""
+    return global_mean(torch.abs(pred - target))
 
 
 def bce_sum_over_batch(pred: torch.Tensor, target: torch.Tensor,

@@ -2,7 +2,7 @@
 
 Port of ``superresolution_aniso_mri_tpu/utils/grids.py`` (reference:
 kwatsch/acai_utils.py:26-39 generate_recon_grid,
-kwatsch/training_utils.py:9-26 save_image_grid,
+kwatsch/training_utils.py:9-26 save_image_grid / batch compare grid,
 evaluate/evaluate_image.py:82-107 create_compare_image). The grids are
 the JAX package's numpy code; the PNG is written here with ``zlib`` and
 ``struct`` (8-bit grayscale, filter type 0) instead of PIL, which the
@@ -49,6 +49,24 @@ def generate_recon_grid(originals: np.ndarray, recons: np.ndarray,
     if r.ndim == 4:
         r = r[..., 0]
     return make_grid(np.concatenate([o, r], axis=0), nrow=len(o))
+
+
+def generate_batch_compare_grid(image: np.ndarray, between: np.ndarray,
+                                synthesized: np.ndarray,
+                                reconstruction: np.ndarray,
+                                max_items: int = 6) -> np.ndarray:
+    """Rows: slice_from, slice_to, true between, synthesized between,
+    reconstruction (reference: training_utils.py:16-26). ``image`` is
+    the (2B ∥ B) layout [from ∥ to]: the to-slices are those of the
+    same first items, ``image[half:half + b]``."""
+    b = min(max_items, between.shape[0])
+    image = np.asarray(image)
+    half = image.shape[0] // 2
+    rows = [image[:b], image[half:half + b],
+            np.asarray(between)[:b], np.asarray(synthesized)[:b],
+            np.asarray(reconstruction)[:b]]
+    rows = [r[..., 0] if r.ndim == 4 else r for r in rows]
+    return make_grid(np.concatenate(rows, axis=0), nrow=b)
 
 
 def create_compare_image(orig_slices: np.ndarray,

@@ -265,6 +265,11 @@ def _capture(monkeypatch, mod, call):
     return seen
 
 
+DHCP_RECIPE = ["--dataset_shape", "dHCP", "--inplane", "256", "--num_slices",
+               "37", "--n_patients", "24", "--loss_mode", "mse",
+               "--latent_width", "128", "--use_batchnorm", "0",
+               "--lr_schedule", "--train_latent_interp", "lanczos3",
+               "--latent_interp", "lanczos3", "--epochs", "600"]
 CHILD_ARGV = [
     ["--dataset_shape", "OASIS", "--loss_mode", "mse", "--phantom_noise",
      "0.03", "--latent_width", "32", "--use_batchnorm", "0",
@@ -279,21 +284,53 @@ CHILD_ARGV = [
     ["--model", "acai_combined", "--loss_mode", "mse+ssim", "--use_batchnorm",
      "1", "--latent_interp", "cubic", "--sweep_last", "5", "--epochs", "9",
      "--train_latent_interp", "cubic"],
+    # the README's recipe rows at their full sizes (their trees are
+    # recorded, not written: test_trees_match_jax_bit_for_bit holds the
+    # fabrication): cardiac float32 served with TTA flips
+    # (docs/quality_real_r3.jsonl row 32), dHCP 4x noiseless (r3 row 34)
+    # and at sigma 0.03 with the clip (docs/quality_real_r5.jsonl row 1)
+    ["--dataset_shape", "ACDC", "--num_frames", "6", "--num_slices", "15",
+     "--inplane", "64", "--n_patients", "24", "--phantom_noise", "0.03",
+     "--loss_mode", "mse", "--latent_width", "32", "--train_latent_interp",
+     "lanczos3", "--latent_interp", "lanczos3", "--tta", "flips",
+     "--epochs", "450", "--extra_test_volumes", "10"],
+    DHCP_RECIPE + ["--extra_test_volumes", "6"],
+    DHCP_RECIPE + ["--phantom_noise", "0.03", "--aug_noise",
+                   "--max_grad_norm", "1.0", "--extra_test_volumes", "20"],
 ]
+TREE_MAKERS = ("make_textured_oasis_tree", "make_textured_dhcp_tree",
+               "make_textured_acdc_tree")
+
+
+def _record_trees(monkeypatch, mod) -> list:
+    """Each tree ``mod.main`` fabricates, as (maker, arguments after the
+    data root, keywords), instead of the files."""
+    calls = []
+    for name in TREE_MAKERS:
+        monkeypatch.setattr(mod, name, lambda root, *a, _name=name, **k:
+                            calls.append((_name, a, k)))
+    return calls
 
 
 @pytest.mark.parametrize("argv", CHILD_ARGV,
                          ids=["oasis_recipe", "acdc_bf16", "dhcp_fitted",
-                              "acai"])
+                              "acai", "recipe_acdc_f32_tta",
+                              "recipe_dhcp", "recipe_dhcp_noise_clip"])
 def test_child_commands_match_jax_after_the_entry_point(monkeypatch, argv):
     small = ["--n_patients", str(N), "--num_slices", str(SLICES),
              "--inplane", str(HW)]
+    full_size = "--n_patients" in argv
     monkeypatch.setattr(sys, "argv", ["real_pipeline_quality.py", *small,
                                       *argv])
     monkeypatch.setenv("SR_DATA_ROOT", "unset")
+    if full_size:
+        jtrees = _record_trees(monkeypatch, jrpq)
+        ptrees = _record_trees(monkeypatch, prpq)
     jseen = _capture(monkeypatch, jrpq, jrpq.main)
     pseen = _capture(monkeypatch, prpq,
                      lambda: prpq.main([*small, *argv, "--device", "cpu"]))
+    if full_size:
+        assert len(jtrees) == 1 and ptrees == jtrees
     assert sorted(jseen) == sorted(pseen)
     entry = {"train": 2, "fit_taps": 2, "find_best": 2}
     command = {"train": ("train-cardiac" if "ACDC" in argv
@@ -446,9 +483,11 @@ def kept_work(tmp_path_factory):
     return work
 
 
-def test_scoring_leg_matches_jax(monkeypatch, tmp_path, kept_work):
+@pytest.mark.parametrize("tta", [None, "flips"])
+def test_scoring_leg_matches_jax(monkeypatch, tmp_path, kept_work, tta):
     argv = ["--reuse", kept_work, "--checkpoint", "caisr",
-            "--extra_test_volumes", "2", "--latent_interp", "lanczos3"]
+            "--extra_test_volumes", "2", "--latent_interp", "lanczos3",
+            *(["--tta", tta] if tta else [])]
     jout, pout = str(tmp_path / "jax.jsonl"), str(tmp_path / "port.jsonl")
 
     def no_child(*a, **k):
@@ -477,6 +516,7 @@ def test_scoring_leg_matches_jax(monkeypatch, tmp_path, kept_work):
             assert abs(got - want) <= ROW_RTOL * abs(want) + 1e-5, (k, m,
                                                                    got, want)
     assert jrow["checkpoint"] == "caisr" and jrow["n_extra_test"] == 2
+    assert jrow["tta"] == tta
 
 
 def test_quality_check_row_matches_jax(monkeypatch, tmp_path):
