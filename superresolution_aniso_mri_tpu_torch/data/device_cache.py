@@ -25,6 +25,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .pairs import TripletSampler
 
 DEFAULT_BUDGET_MB = 512.0     # the JAX package's default, kept off the card
@@ -92,13 +93,16 @@ class DeviceCachedSampler:
         }
 
     def sample_batch(self, batch_size: int) -> Dict:
-        sel = self.s.rs.randint(0, len(self.s._idcs), size=batch_size)
-        return self._assemble(sel)
+        with span("data.gather"):
+            sel = self.s.rs.randint(0, len(self.s._idcs), size=batch_size)
+            return self._assemble(sel)
 
     def epoch_batches(self, batch_size: int):
         perm = self.s.rs.permutation(len(self.s._idcs))
         for start in range(0, len(perm) - batch_size + 1, batch_size):
-            yield self._assemble(perm[start:start + batch_size])
+            with span("data.gather"):
+                batch = self._assemble(perm[start:start + batch_size])
+            yield batch
 
 
 def cache_nbytes(sampler: TripletSampler) -> int:

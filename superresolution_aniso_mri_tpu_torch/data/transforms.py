@@ -31,6 +31,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import span
+
 NOISE_SIGMA_MAX = 0.05      # the JAX package's ``_noise_one`` default
 ELASTIC_GRID = 4            # coarse displacement grid of ``_elastic_one``
 PERSPECTIVE_JITTER = 0.002  # homography I + U(-j, j) of ``_perspective_one``
@@ -480,21 +482,24 @@ def device_batch(raw: Dict, cfg: AugmentConfig, device, latent_taps: int = 2,
         return t.pin_memory().to(device, non_blocking=True) if cuda \
             else t.to(device)
 
-    x = augment_batch(put(raw["triplet"]).permute(0, 3, 1, 2), cfg, generator)
-    batch = {}
-    if with_mask:
-        batch["loss_mask"] = x[:, -1:]
-        x = x[:, :-1]
-    if latent_taps == 6:
-        (batch["image"], batch["outer"], batch["outer2"],
-         batch["slice_between"]) = prepare_batch_septets(x)
-    elif latent_taps == 4:
-        (batch["image"], batch["outer"],
-         batch["slice_between"]) = prepare_batch_quintets(x)
-    else:
-        batch["image"], batch["slice_between"] = prepare_batch_pairs(x)
-    batch = {k: v.contiguous() for k, v in batch.items()}
-    for key in ("alpha_from", "alpha_to", "is_inbetween", "alpha_features"):
-        if key in raw:
-            batch[key] = put(raw[key])
-    return batch
+    with span("data.augment"):
+        x = augment_batch(put(raw["triplet"]).permute(0, 3, 1, 2), cfg,
+                          generator)
+        batch = {}
+        if with_mask:
+            batch["loss_mask"] = x[:, -1:]
+            x = x[:, :-1]
+        if latent_taps == 6:
+            (batch["image"], batch["outer"], batch["outer2"],
+             batch["slice_between"]) = prepare_batch_septets(x)
+        elif latent_taps == 4:
+            (batch["image"], batch["outer"],
+             batch["slice_between"]) = prepare_batch_quintets(x)
+        else:
+            batch["image"], batch["slice_between"] = prepare_batch_pairs(x)
+        batch = {k: v.contiguous() for k, v in batch.items()}
+        for key in ("alpha_from", "alpha_to", "is_inbetween",
+                    "alpha_features"):
+            if key in raw:
+                batch[key] = put(raw[key])
+        return batch

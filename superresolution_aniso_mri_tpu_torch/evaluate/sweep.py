@@ -35,6 +35,7 @@ from ..infer.super_volume import (_DECODE_ACT_BUDGET_BYTES,
                                   model_label_semantics)
 from ..ops.cuda_kernels import ssim_volume_fused
 from ..ops.metrics import psnr_volume, synth_slice_mask, vif_volume
+from ..utils.profiling import span
 from .metrics_driver import IdUniquifier
 
 
@@ -56,11 +57,14 @@ def make_sweep_evaluator(model, decode_batch: Optional[int] = None,
         b, _, h, w = r.shape
         win = 7 if min(h, w) >= 8 else 5
         with torch.inference_mode(), f32_exact():
-            ssim = ssim_volume_fused(r.reshape(b * n, h, w),
-                                     u.reshape(b * n, h, w), 1.0, win)
-            return {"ssim": ssim.view(b, n),
-                    "psnr": psnr_volume(r, u, 1.0),
-                    "vif": vif_volume(r, u),
+            with span("score.ssim"):
+                ssim = ssim_volume_fused(r.reshape(b * n, h, w),
+                                         u.reshape(b * n, h, w), 1.0, win)
+            with span("score.psnr"):
+                psnr = psnr_volume(r, u, 1.0)
+            with span("score.vif"):
+                vif = vif_volume(r, u)
+            return {"ssim": ssim.view(b, n), "psnr": psnr, "vif": vif,
                     "sq": ((r - u) ** 2).mean(dim=(2, 3))}
 
     return evaluate
@@ -73,8 +77,9 @@ def _get_evaluator(trainer, decode_batch: Optional[int] = None,
     key = ("sweep", decode_batch, latent_interp_cache_token(latent_interp))
     cache = trainer.synth_cache
     if key not in cache:
-        cache[key] = make_sweep_evaluator(trainer._ae_model(), decode_batch,
-                                          latent_interp)
+        with span("build.core"):
+            cache[key] = make_sweep_evaluator(trainer._ae_model(),
+                                              decode_batch, latent_interp)
     return cache[key]
 
 
@@ -172,31 +177,38 @@ def evaluate_prepared(trainer, prep: Dict,
     """Score prepared batches against the trainer's CURRENT weights on
     its device. Returns per-frame entries (``pid@t`` keys for 4D
     volumes)."""
-    ds = prep["ds"]
-    dev = trainer.device
-    alphas = torch.from_numpy(prep["alphas"]).to(dev)
-    results: Dict[str, Dict] = {}
-    for chunk in prep["chunks"]:
-        evaluator = _get_evaluator(trainer, chunk["decode_batch"],
-                                   latent_interp)
-        per_slice = evaluator(torch.from_numpy(chunk["kept"]).to(dev),
-                              torch.from_numpy(chunk["hr"]).to(dev), alphas)
-        per_slice = {k: v.cpu().numpy() for k, v in per_slice.items()}
-        for j, (pid, n_valid) in enumerate(chunk["meta"]):
-            valid = np.zeros(per_slice["ssim"].shape[1], bool)
-            valid[:n_valid] = True
-            synth = synth_slice_mask(per_slice["ssim"].shape[1], ds,
-                                     conv_interpol=False) & valid
-            m = {}
-            for name in ("ssim", "psnr", "vif"):
-                vals = per_slice[name][j]
-                # non-finite per-slice values (NaN VIF on uniform slices,
-                # inf PSNR on exact copies) drop out, like masked_mean
-                m[name] = _finite_mean(vals[valid])
-                m[name + "_synth"] = _finite_mean(vals[synth])
-            m["mse"] = float(np.mean(per_slice["sq"][j][valid]))
-            results[pid] = m
-    return results
+    with span("score.request",
+              volumes=sum(len(c["meta"]) for c in prep["chunks"])):
+        ds = prep["ds"]
+        dev = trainer.device
+        alphas = torch.from_numpy(prep["alphas"]).to(dev)
+        results: Dict[str, Dict] = {}
+        for chunk in prep["chunks"]:
+            evaluator = _get_evaluator(trainer, chunk["decode_batch"],
+                                       latent_interp)
+            with span("score.upload"):
+                kept = torch.from_numpy(chunk["kept"]).to(dev)
+                hr = torch.from_numpy(chunk["hr"]).to(dev)
+            per_slice = evaluator(kept, hr, alphas)
+            with span("score.readback"):
+                per_slice = {k: v.cpu().numpy() for k, v in per_slice.items()}
+            with span("score.means"):
+                for j, (pid, n_valid) in enumerate(chunk["meta"]):
+                    valid = np.zeros(per_slice["ssim"].shape[1], bool)
+                    valid[:n_valid] = True
+                    synth = synth_slice_mask(per_slice["ssim"].shape[1], ds,
+                                             conv_interpol=False) & valid
+                    m = {}
+                    for name in ("ssim", "psnr", "vif"):
+                        vals = per_slice[name][j]
+                        # non-finite per-slice values (NaN VIF on uniform
+                        # slices, inf PSNR on exact copies) drop out, like
+                        # masked_mean
+                        m[name] = _finite_mean(vals[valid])
+                        m[name + "_synth"] = _finite_mean(vals[synth])
+                    m["mse"] = float(np.mean(per_slice["sq"][j][valid]))
+                    results[pid] = m
+        return results
 
 
 def evaluate_volumes_batched(trainer, volumes: Iterable,

@@ -64,6 +64,7 @@ from .latent_taps import (fitted_tap_weights, fitted_table_path,
                           is_fitted_mode, latent_interp_cache_token,
                           load_latent_taps)
 from .packed_decoder import make_packed_decoder, packable
+from ..utils.profiling import span
 
 LATENT_INTERP_MODES = ("linear", "cubic", "lanczos3", "fitted")
 _LATENT_TAP_OFFSETS = {"cubic": (-1, 0, 1, 2), "lanczos3": LANCZOS3_OFFSETS}
@@ -241,37 +242,39 @@ class SynthesisStages:
         b, k, _, h, w = kept.shape
         check_vae_size(self.model, h, w)
         ph, pw = self._pads(h, w)
-        if ph or pw:
-            flat = torch.nn.functional.pad(kept.flatten(0, 1),
-                                           (0, pw, 0, ph), mode="reflect")
-            kept = flat.unflatten(0, (b, k))
-        # the latent carries the compute dtype through the mix
-        return _chunked_call_pervol(self._encode, kept,
-                                    self.decode_batch).to(self.cfg.dtype)
+        with span("synth.encode"):
+            if ph or pw:
+                flat = torch.nn.functional.pad(
+                    kept.flatten(0, 1), (0, pw, 0, ph), mode="reflect")
+                kept = flat.unflatten(0, (b, k))
+            # the latent carries the compute dtype through the mix
+            return _chunked_call_pervol(self._encode, kept,
+                                        self.decode_batch).to(self.cfg.dtype)
 
     def mix(self, z: torch.Tensor, alphas: torch.Tensor, lo: int,
             hi: int) -> torch.Tensor:
         """The mixed latents [B, hi - lo, A, ...] of pairs ``lo … hi-1``
         of the whole stack ``z`` [B, K, ...] (taps clamped to [0, K-1])."""
-        b, k = z.shape[0], z.shape[1]
-        a_n = alphas.shape[0]
-        # [1, 1, A, 1, ...] over the latent's own axes ([C, H, W] or
-        # VAE2's flat [D])
-        bcast = (1, 1, a_n) + (1,) * (z.ndim - 2)
-        if self.tap_offsets is None:
-            a = alphas.to(z.dtype).view(bcast)
-            one = torch.ones((), dtype=z.dtype, device=z.device)
-            return (a * z[:, lo + 1:hi + 1, None]
-                    + (one - a) * z[:, lo:hi, None])
-        # weights in float32, then the mix in the latent's dtype
-        wts = self.tap_weight_fn(alphas).to(z.dtype)        # [A, n_taps]
-        pair = torch.arange(lo, hi, device=z.device)
-        z_mix = torch.zeros((b, hi - lo, a_n) + z.shape[2:], dtype=z.dtype,
-                            device=z.device)
-        for ti, off in enumerate(self.tap_offsets):
-            tap = z.index_select(1, (pair + off).clamp(0, k - 1))
-            z_mix = z_mix + wts[:, ti].view(bcast) * tap[:, :, None]
-        return z_mix
+        with span("synth.mix"):
+            b, k = z.shape[0], z.shape[1]
+            a_n = alphas.shape[0]
+            # [1, 1, A, 1, ...] over the latent's own axes ([C, H, W] or
+            # VAE2's flat [D])
+            bcast = (1, 1, a_n) + (1,) * (z.ndim - 2)
+            if self.tap_offsets is None:
+                a = alphas.to(z.dtype).view(bcast)
+                one = torch.ones((), dtype=z.dtype, device=z.device)
+                return (a * z[:, lo + 1:hi + 1, None]
+                        + (one - a) * z[:, lo:hi, None])
+            # weights in float32, then the mix in the latent's dtype
+            wts = self.tap_weight_fn(alphas).to(z.dtype)    # [A, n_taps]
+            pair = torch.arange(lo, hi, device=z.device)
+            z_mix = torch.zeros((b, hi - lo, a_n) + z.shape[2:],
+                                dtype=z.dtype, device=z.device)
+            for ti, off in enumerate(self.tap_offsets):
+                tap = z.index_select(1, (pair + off).clamp(0, k - 1))
+                z_mix = z_mix + wts[:, ti].view(bcast) * tap[:, :, None]
+            return z_mix
 
     def decode(self, kept: torch.Tensor, z: torch.Tensor,
                z_mix: torch.Tensor, use_original: bool
@@ -280,24 +283,25 @@ class SynthesisStages:
         ``z`` (or, with ``use_original``, ``kept`` itself: a
         MultiChannelAE's kept planes, the input labels verbatim) and the
         decoded ``z_mix`` [B, P, A, ...], as one batch."""
-        k, k1, a_n = z.shape[1], z_mix.shape[1], z_mix.shape[2]
-        z_flat = z_mix.flatten(1, 2)                       # [B, P*A, ...]
-        if use_original:
-            dec = _chunked_call_pervol(self._decode, z_flat,
-                                       self.decode_batch)
-            recon = kept
-            interp = dec.unflatten(1, (k1, a_n))
-        else:
-            dec = _chunked_call_pervol(self._decode,
-                                       torch.cat([z, z_flat], dim=1),
-                                       self.decode_batch)
-            recon = dec[:, :k]
-            interp = dec[:, k:].unflatten(1, (k1, a_n))
-        h, w = kept.shape[3], kept.shape[4]
-        if any(self._pads(h, w)):
-            recon = recon[..., :h, :w]
-            interp = interp[..., :h, :w]
-        return {"recon": recon, "interp": interp}
+        with span("synth.decode"):
+            k, k1, a_n = z.shape[1], z_mix.shape[1], z_mix.shape[2]
+            z_flat = z_mix.flatten(1, 2)                   # [B, P*A, ...]
+            if use_original:
+                dec = _chunked_call_pervol(self._decode, z_flat,
+                                           self.decode_batch)
+                recon = kept
+                interp = dec.unflatten(1, (k1, a_n))
+            else:
+                dec = _chunked_call_pervol(self._decode,
+                                           torch.cat([z, z_flat], dim=1),
+                                           self.decode_batch)
+                recon = dec[:, :k]
+                interp = dec[:, k:].unflatten(1, (k1, a_n))
+            h, w = kept.shape[3], kept.shape[4]
+            if any(self._pads(h, w)):
+                recon = recon[..., :h, :w]
+                interp = interp[..., :h, :w]
+            return {"recon": recon, "interp": interp}
 
     def finish(self, out: Dict[str, torch.Tensor], interleave: bool,
                single: bool) -> Dict[str, torch.Tensor]:
@@ -360,17 +364,18 @@ def _get_core(trainer, decode_batch: Optional[int], latent_interp: str,
            n, batched and n > 1)
     cache = trainer.synth_cache
     if key not in cache:
-        if n > 1:
-            from .. import parallel
+        with span("build.core"):
+            if n > 1:
+                from .. import parallel
 
-            mesh = parallel.local_mesh(n, trainer.device)
-            factory = (parallel.make_sharded_batched_synthesizer if batched
-                       else parallel.make_sharded_synthesizer)
-            cache[key] = factory(model, mesh, decode_batch=decode_batch,
-                                 latent_interp=latent_interp)
-        else:
-            cache[key] = make_synthesis_core(model, decode_batch,
-                                             latent_interp=latent_interp)
+                mesh = parallel.local_mesh(n, trainer.device)
+                factory = (parallel.make_sharded_batched_synthesizer
+                           if batched else parallel.make_sharded_synthesizer)
+                cache[key] = factory(model, mesh, decode_batch=decode_batch,
+                                     latent_interp=latent_interp)
+            else:
+                cache[key] = make_synthesis_core(
+                    model, decode_batch, latent_interp=latent_interp)
     return cache[key]
 
 
@@ -568,9 +573,10 @@ def _pad_kept(kept: np.ndarray, k_pad: int, latent_interp: str) -> np.ndarray:
 def _readback(vol: torch.Tensor, readback_dtype) -> np.ndarray:
     """Device → host float32 numpy; 'bfloat16' casts on the device and
     widens on the host (half the transfer)."""
-    if readback_dtype == "bfloat16":
-        return vol.to(torch.bfloat16).cpu().to(torch.float32).numpy()
-    return vol.to(torch.float32).cpu().numpy()
+    with span("serve.readback"):
+        if readback_dtype == "bfloat16":
+            return vol.to(torch.bfloat16).cpu().to(torch.float32).numpy()
+        return vol.to(torch.float32).cpu().numpy()
 
 
 def create_super_volume(trainer, images, alpha_range=None,
@@ -592,64 +598,92 @@ def create_super_volume(trainer, images, alpha_range=None,
     ``create_super_volume`` for every option. ``readback_dtype=
     'bfloat16'`` casts on the device and widens on the host."""
     _check_serving_options(trainer, readback_dtype)
-    if tta:
-        variants = _tta_variants(tta)
-        kwargs = dict(alpha_range=alpha_range, use_original=use_original,
-                      downsample_steps=downsample_steps,
-                      generate_inbetween_slices=generate_inbetween_slices,
-                      pad_to_bucket=pad_to_bucket,
-                      decode_batch=decode_batch, num_devices=num_devices,
-                      tta=None, latent_interp=latent_interp,
-                      readback_dtype=readback_dtype)
-        base = create_super_volume(trainer, images, labels=labels, **kwargs)
+    kwargs = dict(alpha_range=alpha_range, use_original=use_original,
+                  downsample_steps=downsample_steps,
+                  generate_inbetween_slices=generate_inbetween_slices,
+                  pad_to_bucket=pad_to_bucket, decode_batch=decode_batch,
+                  num_devices=num_devices, latent_interp=latent_interp,
+                  readback_dtype=readback_dtype)
+    # the work runs in a callee, so that its host buffers are freed
+    # inside the request's span
+    with span("serve.request", volumes=1):
+        if tta:
+            return _tta_volume(trainer, images, labels, tta, kwargs)
+        return _one_volume(trainer, images, labels, **kwargs)
+
+
+def _tta_volume(trainer, images, labels, tta: str,
+                kwargs: Dict) -> Dict[str, np.ndarray]:
+    """``create_super_volume`` with test-time augmentation: the mean of
+    the volumes of every ``_tta_variants(tta)`` transform of ``images``
+    (and ``labels``), each transformed back, clamped to [0, 1]; the
+    other outputs of the identity's call."""
+    variants = _tta_variants(tta)
+    base = create_super_volume(trainer, images, labels=labels, **kwargs)
+    with span("serve.finalize"):
         acc = base["upsampled_image"].astype(np.float64).copy()
-        for fwd, inv in variants[1:]:
-            res = create_super_volume(
-                trainer, fwd(np.asarray(images, np.float32)),
-                labels=None if labels is None else fwd(np.asarray(labels)),
-                **kwargs)
+    for fwd, inv in variants[1:]:
+        with span("serve.prep"):
+            img = fwd(np.asarray(images, np.float32))
+            lbl = None if labels is None else fwd(np.asarray(labels))
+        res = create_super_volume(trainer, img, labels=lbl, **kwargs)
+        with span("serve.finalize"):
             acc += inv(res["upsampled_image"]).astype(np.float64)
+    with span("serve.finalize"):
         base["upsampled_image"] = np.clip(
             acc / len(variants), 0.0, 1.0).astype(np.float32)
-        return base
+    return base
 
-    images = np.asarray(images, np.float32)
-    check_vae_size(trainer._ae_model(), *images.shape[1:])
-    alpha_range, downsample_steps = _alpha_grid(
-        alpha_range, downsample_steps, generate_inbetween_slices)
-    orig_images = images
-    orig_num_slices = images.shape[0]
-    remain = 0
-    if downsample_steps is not None or generate_inbetween_slices:
-        images, remain = kept_slice_grid(images, downsample_steps)
 
-    kept = images[:, None]                       # [K, 1, H, W]
-    needs_label_channel, decodes_labels = model_label_semantics(trainer)
-    if needs_label_channel:
-        lbl_in = make_kept_label_channel(
-            images, labels, downsample_steps, remain, "create_super_volume")
-        kept = np.concatenate(
-            [kept, np.asarray(lbl_in, np.float32)[:, None]], axis=1)
-    k_true = kept.shape[0]
-    a_n = int(len(alpha_range))
-    n_dev = int(num_devices or 1)
-    k_pad = bucket_size(k_true) if pad_to_bucket else k_true
-    # slice-axis sharding needs the kept count divisible by the mesh
-    k_pad = -(-k_pad // n_dev) * n_dev
-    kept = _pad_kept(kept, k_pad, latent_interp)
+def _one_volume(trainer, images, labels, *, alpha_range, use_original,
+                downsample_steps, generate_inbetween_slices, pad_to_bucket,
+                decode_batch, num_devices, latent_interp,
+                readback_dtype) -> Dict[str, np.ndarray]:
+    """``create_super_volume`` of one volume without test-time
+    augmentation."""
+    with span("serve.prep"):
+        images = np.asarray(images, np.float32)
+        check_vae_size(trainer._ae_model(), *images.shape[1:])
+        alpha_range, downsample_steps = _alpha_grid(
+            alpha_range, downsample_steps, generate_inbetween_slices)
+        orig_images = images
+        orig_num_slices = images.shape[0]
+        remain = 0
+        if downsample_steps is not None or generate_inbetween_slices:
+            images, remain = kept_slice_grid(images, downsample_steps)
 
-    if decode_batch == "auto":
-        depth = getattr(getattr(trainer, "model_config", None), "depth", 32)
-        # reconstructions and interpolants decode together: budget the sum
-        decode_batch = _auto_decode_batch(k_pad + (k_pad - 1) * a_n,
-                                          kept.shape[2], kept.shape[3], depth)
-    if n_dev > 1 and decode_batch is not None:
-        # the budget is per device
-        decode_batch = max(32, int(decode_batch) // n_dev)
+        kept = images[:, None]                       # [K, 1, H, W]
+        needs_label_channel, decodes_labels = model_label_semantics(trainer)
+        if needs_label_channel:
+            lbl_in = make_kept_label_channel(
+                images, labels, downsample_steps, remain,
+                "create_super_volume")
+            kept = np.concatenate(
+                [kept, np.asarray(lbl_in, np.float32)[:, None]], axis=1)
+        k_true = kept.shape[0]
+        a_n = int(len(alpha_range))
+        n_dev = int(num_devices or 1)
+        k_pad = bucket_size(k_true) if pad_to_bucket else k_true
+        # slice-axis sharding needs the kept count divisible by the mesh
+        k_pad = -(-k_pad // n_dev) * n_dev
+        kept = _pad_kept(kept, k_pad, latent_interp)
+
+        if decode_batch == "auto":
+            depth = getattr(getattr(trainer, "model_config", None), "depth",
+                            32)
+            # reconstructions and interpolants decode together: budget the
+            # sum
+            decode_batch = _auto_decode_batch(k_pad + (k_pad - 1) * a_n,
+                                              kept.shape[2], kept.shape[3],
+                                              depth)
+        if n_dev > 1 and decode_batch is not None:
+            # the budget is per device
+            decode_batch = max(32, int(decode_batch) // n_dev)
 
     dev = trainer.device
-    kept_t = torch.from_numpy(np.ascontiguousarray(kept)).to(dev)
-    alphas_t = torch.from_numpy(alpha_range).to(dev)
+    with span("serve.upload"):
+        kept_t = torch.from_numpy(np.ascontiguousarray(kept)).to(dev)
+        alphas_t = torch.from_numpy(alpha_range).to(dev)
     if getattr(trainer, "params_sr", None) is not None:
         vol = _combo_volume(trainer, kept_t, alphas_t, k_true, use_original,
                             decode_batch, latent_interp, decodes_labels,
@@ -662,12 +696,13 @@ def create_super_volume(trainer, images, alpha_range=None,
         # and the decoded labels' plane of a MultiChannelAE
         planes = 2 if decodes_labels else 1
         vol = out["volume"][:(k_true - 1) * (a_n + 1) + 1, :planes]
-    return _finalize_volume_outputs(
-        _readback(vol, readback_dtype), orig_images=orig_images,
-        labels=labels, alpha_range=alpha_range,
-        downsample_steps=downsample_steps,
-        generate_inbetween_slices=generate_inbetween_slices,
-        remain=remain, k_true=k_true, orig_num_slices=orig_num_slices)
+    new_volume = _readback(vol, readback_dtype)
+    with span("serve.finalize"):
+        return _finalize_volume_outputs(
+            new_volume, orig_images=orig_images, labels=labels,
+            alpha_range=alpha_range, downsample_steps=downsample_steps,
+            generate_inbetween_slices=generate_inbetween_slices,
+            remain=remain, k_true=k_true, orig_num_slices=orig_num_slices)
 
 
 def _finalize_volume_outputs(new_volume: np.ndarray, *, orig_images, labels,
@@ -765,43 +800,59 @@ def create_super_volumes(trainer, images_list: Sequence,
                   num_devices=num_devices, tta=tta,
                   latent_interp=latent_interp,
                   readback_dtype=readback_dtype)
-    if (tta or getattr(trainer, "params_sr", None) is not None
-            or len(images_list) <= 1):
-        return [create_super_volume(trainer, img, labels=lbl, **kwargs)
-                for img, lbl in zip(images_list, labels_list)]
+    with span("serve.request", volumes=len(images_list)):
+        if (tta or getattr(trainer, "params_sr", None) is not None
+                or len(images_list) <= 1):
+            return [create_super_volume(trainer, img, labels=lbl, **kwargs)
+                    for img, lbl in zip(images_list, labels_list)]
+        # the work runs in a callee, so that its host buffers are freed
+        # inside the request's span
+        return _batched_volumes(trainer, images_list, labels_list, kwargs,
+                                **kwargs)
 
-    alpha_range, downsample_steps = _alpha_grid(
-        alpha_range, downsample_steps, generate_inbetween_slices)
-    a_n = int(len(alpha_range))
-    needs_label_channel, decodes_labels = model_label_semantics(trainer)
-    planes = 2 if decodes_labels else 1
-    depth = getattr(getattr(trainer, "model_config", None), "depth", 32)
 
-    # per-volume prep mirrors create_super_volume exactly
-    groups: Dict[tuple, list] = {}
-    for idx, (img, lbl) in enumerate(zip(images_list, labels_list)):
-        img = np.asarray(img, np.float32)
-        check_vae_size(trainer._ae_model(), *img.shape[1:])
-        orig_images, orig_num_slices, remain = img, img.shape[0], 0
-        if downsample_steps is not None or generate_inbetween_slices:
-            img, remain = kept_slice_grid(img, downsample_steps)
-        kept = img[:, None]
-        if needs_label_channel:
-            lbl_in = make_kept_label_channel(
-                img, lbl, downsample_steps, remain, "create_super_volumes")
-            kept = np.concatenate(
-                [kept, np.asarray(lbl_in, np.float32)[:, None]], axis=1)
-        k_true = kept.shape[0]
-        k_pad = bucket_size(k_true) if pad_to_bucket else k_true
-        kept = _pad_kept(kept, k_pad, latent_interp)
-        meta = dict(index=idx, orig_images=orig_images, labels=lbl,
-                    remain=remain, k_true=k_true,
-                    orig_num_slices=orig_num_slices)
-        groups.setdefault(kept.shape, []).append((kept, meta))
+def _batched_volumes(trainer, images_list: list, labels_list: list,
+                     kwargs: Dict, *, alpha_range, use_original,
+                     downsample_steps, generate_inbetween_slices,
+                     pad_to_bucket, decode_batch, num_devices, tta,
+                     latent_interp, readback_dtype) -> list:
+    """``create_super_volumes`` of two or more volumes without TTA or the
+    combo, ``kwargs`` its options for the per-volume path."""
+    with span("serve.prep"):
+        alpha_range, downsample_steps = _alpha_grid(
+            alpha_range, downsample_steps, generate_inbetween_slices)
+        a_n = int(len(alpha_range))
+        needs_label_channel, decodes_labels = model_label_semantics(trainer)
+        planes = 2 if decodes_labels else 1
+        depth = getattr(getattr(trainer, "model_config", None), "depth", 32)
+
+        # per-volume prep mirrors create_super_volume exactly
+        groups: Dict[tuple, list] = {}
+        for idx, (img, lbl) in enumerate(zip(images_list, labels_list)):
+            img = np.asarray(img, np.float32)
+            check_vae_size(trainer._ae_model(), *img.shape[1:])
+            orig_images, orig_num_slices, remain = img, img.shape[0], 0
+            if downsample_steps is not None or generate_inbetween_slices:
+                img, remain = kept_slice_grid(img, downsample_steps)
+            kept = img[:, None]
+            if needs_label_channel:
+                lbl_in = make_kept_label_channel(
+                    img, lbl, downsample_steps, remain,
+                    "create_super_volumes")
+                kept = np.concatenate(
+                    [kept, np.asarray(lbl_in, np.float32)[:, None]], axis=1)
+            k_true = kept.shape[0]
+            k_pad = bucket_size(k_true) if pad_to_bucket else k_true
+            kept = _pad_kept(kept, k_pad, latent_interp)
+            meta = dict(index=idx, orig_images=orig_images, labels=lbl,
+                        remain=remain, k_true=k_true,
+                        orig_num_slices=orig_num_slices)
+            groups.setdefault(kept.shape, []).append((kept, meta))
 
     results: list = [None] * len(images_list)
     dev = trainer.device
-    alphas_dev = torch.from_numpy(alpha_range).to(dev)
+    with span("serve.upload"):
+        alphas_dev = torch.from_numpy(alpha_range).to(dev)
     nd = int(num_devices or 1)
     for (k_pad, c, h, w), items in groups.items():
         if nd > 1 and len(items) == 1:
@@ -825,10 +876,11 @@ def create_super_volumes(trainer, images_list: Sequence,
             b = max_b
         for start in range(0, len(items), b):
             part = items[start:start + b]
-            stacked = [it[0] for it in part]
-            if nd > 1:
-                stacked += [part[-1][0]] * (b - len(part))
-            stack = torch.from_numpy(np.stack(stacked)).to(dev)
+            with span("serve.upload"):
+                stacked = [it[0] for it in part]
+                if nd > 1:
+                    stacked += [part[-1][0]] * (b - len(part))
+                stack = torch.from_numpy(np.stack(stacked)).to(dev)
             if nd > 1:
                 vols = synth(stack, alphas_dev, use_original)[:len(part)]
             else:
@@ -838,13 +890,14 @@ def create_super_volumes(trainer, images_list: Sequence,
             vols = _readback(vols[:, :s_max, :planes], readback_dtype)
             for j, (_kept, meta) in enumerate(part):
                 s_j = (meta["k_true"] - 1) * (a_n + 1) + 1
-                results[meta["index"]] = _finalize_volume_outputs(
-                    vols[j, :s_j], orig_images=meta["orig_images"],
-                    labels=meta["labels"], alpha_range=alpha_range,
-                    downsample_steps=downsample_steps,
-                    generate_inbetween_slices=generate_inbetween_slices,
-                    remain=meta["remain"], k_true=meta["k_true"],
-                    orig_num_slices=meta["orig_num_slices"])
+                with span("serve.finalize"):
+                    results[meta["index"]] = _finalize_volume_outputs(
+                        vols[j, :s_j], orig_images=meta["orig_images"],
+                        labels=meta["labels"], alpha_range=alpha_range,
+                        downsample_steps=downsample_steps,
+                        generate_inbetween_slices=generate_inbetween_slices,
+                        remain=meta["remain"], k_true=meta["k_true"],
+                        orig_num_slices=meta["orig_num_slices"])
     return results
 
 

@@ -22,6 +22,8 @@ import tempfile
 from pathlib import Path
 from typing import Dict, Sequence
 
+from ..utils.profiling import span
+
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -118,7 +120,8 @@ def load_library(name: str, extra_flags: Sequence[str] = ()) -> ctypes.CDLL:
     per process."""
     key = name + "\0" + "\0".join(extra_flags)
     if key not in _LOADED:
-        _LOADED[key] = ctypes.CDLL(str(build(name, extra_flags)))
+        with span("build.kernel"):
+            _LOADED[key] = ctypes.CDLL(str(build(name, extra_flags)))
     return _LOADED[key]
 
 

@@ -80,6 +80,7 @@ from ..ops.lpips import lpips_distance
 from ..ops.metrics import ssim_volume
 from ..ops.perceptual import enc_lpips_distance
 from ..parallel.distributed import average_gradients, global_mean, global_sum
+from ..utils.profiling import span
 from .state import TrainState, scalar_tensor
 
 Batch = Dict[str, torch.Tensor]
@@ -660,19 +661,22 @@ def make_multi_train_step(cfg: LossConfig, lpips_params: Any = None, *,
             rec = captured.get(sig)
             if rec is None and warm.setdefault(sig, [state, 0])[1] \
                     >= WARMUP_STEPS:
-                rec = captured[sig] = _CapturedStep(state, cfg, lpips_params,
-                                                    batch)
+                with span("build.graph"):
+                    rec = captured[sig] = _CapturedStep(state, cfg,
+                                                        lpips_params, batch)
             if rec is not None:
-                out.append(rec.replay(batch, rows[i]).clone())
+                with span("train.replay"):
+                    out.append(rec.replay(batch, rows[i]).clone())
                 keys = rec.keys
             else:
-                side.wait_stream(torch.cuda.current_stream(dev))
-                with torch.cuda.stream(side), f32_exact():
-                    metrics = _update(state, cfg, lpips_params, batch,
-                                      rows[i])
-                    keys = list(metrics)
-                    out.append(torch.stack([metrics[k] for k in keys]))
-                torch.cuda.current_stream(dev).wait_stream(side)
+                with span("build.eager_step"):
+                    side.wait_stream(torch.cuda.current_stream(dev))
+                    with torch.cuda.stream(side), f32_exact():
+                        metrics = _update(state, cfg, lpips_params, batch,
+                                          rows[i])
+                        keys = list(metrics)
+                        out.append(torch.stack([metrics[k] for k in keys]))
+                    torch.cuda.current_stream(dev).wait_stream(side)
                 warm[sig][1] += 1
             _advance(state)
         stacked = torch.stack(out)

@@ -87,6 +87,7 @@ from ..parallel import (create_mesh, is_main_process, local_mesh,
                         make_sharded_train_step, process_count,
                         process_index, replicate_state)
 from ..parallel.distributed import is_rank
+from ..utils.profiling import span
 from .checkpoint import load_checkpoint, load_checkpoint_raw, save_checkpoint
 from .import_torch import (is_torch_checkpoint, load_reference_pickle,
                            reference_state_to_port)
@@ -437,14 +438,15 @@ class Trainer:
             self._multi_step = make_multi_train_step(
                 self.loss_config, self.lpips_params, device=self.device)
         n = len(batches)
-        self._iters += n
-        self.state, metrics = self._multi_step(
-            self.state, [self.draw_noise(b) for b in batches],
-            self._mix_weight())
-        self._ema_step(n)
-        for k, v in metrics.items():
-            self.losses[k].extend(v.unbind())
-        return metrics
+        with span("train.dispatch", steps=n):
+            self._iters += n
+            self.state, metrics = self._multi_step(
+                self.state, [self.draw_noise(b) for b in batches],
+                self._mix_weight())
+            self._ema_step(n)
+            for k, v in metrics.items():
+                self.losses[k].extend(v.unbind())
+            return metrics
 
     @torch.no_grad()
     def _ema_step(self, n_steps: int) -> None:
@@ -453,13 +455,14 @@ class Trainer:
         compounds the decay over a dispatch, and so does the port."""
         if self.ema_params is None:
             return
-        d = np.float32(self.ema_decay ** int(n_steps))
-        ema = list(self.ema_params.values())
-        params = self.state.params()
-        torch._foreach_mul_(ema, float(d))
-        torch._foreach_add_(ema, torch._foreach_mul(
-            [params[k].detach() for k in self.ema_params],
-            float(np.float32(1) - d)))
+        with span("train.ema"):
+            d = np.float32(self.ema_decay ** int(n_steps))
+            ema = list(self.ema_params.values())
+            params = self.state.params()
+            torch._foreach_mul_(ema, float(d))
+            torch._foreach_add_(ema, torch._foreach_mul(
+                [params[k].detach() for k in self.ema_params],
+                float(np.float32(1) - d)))
 
     def validate(self, batch: Dict[str, torch.Tensor]):
         """Record one validation batch's losses (device tensors); its

@@ -2,7 +2,8 @@
 version, the serving, scoring and training entry points on CUDA against
 the same calls on the CPU (the labeled MultiChannelAE path and the
 alpha families included), the perceptual tools, the
-experiment-directory commands and the quality harness. Every test here needs an NVIDIA
+experiment-directory commands, the quality harness, and the port's
+``sr.*`` stage ranges under the profiler. Every test here needs an NVIDIA
 GPU and skips without one.
 
 This file imports neither JAX nor the JAX package, so it runs where
@@ -10,6 +11,7 @@ only the port's dependencies are installed:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_port_cuda.py
 """
+import json
 import os
 
 import numpy as np
@@ -925,6 +927,90 @@ def test_real_pipeline_quality_row_on_card(cuda, tmp_path):
               "model_extra", "best_conventional_extra"):
         assert all(np.isfinite(v) for v in rows[0][k].values()), k
     assert rows[0]["epochs"] == 4 and rows[0]["n_extra_test"] == 2
+
+
+def test_sr_ranges_add_no_device_busy_time(cuda, tmp_path):
+    """Under the profiler, with the port's spans on: serving two volumes
+    and a graph-replayed dispatch store their stage spans, whose
+    ``sr.*`` ranges have device-side shadows in the trace; the
+    benchmark's ``TraceSummary.busy_s`` is the union of the kernel,
+    memcpy and memset events alone, so the shadows add no busy time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from port_bench.trace import WINDOW, TraceSummary
+    from superresolution_aniso_mri_tpu_torch.infer import (
+        ServingModel, create_super_volumes)
+    from superresolution_aniso_mri_tpu_torch.models import (AEConfig,
+                                                            VanillaACAI)
+    from superresolution_aniso_mri_tpu_torch.train import (
+        LossConfig, create_train_state, make_multi_train_step)
+    from superresolution_aniso_mri_tpu_torch.train.steps import WARMUP_STEPS
+    from superresolution_aniso_mri_tpu_torch.utils.profiling import (
+        clear_spans, spans)
+
+    cfg = AEConfig(width=32, latent_width=8, depth=4, latent=6)
+    serving = ServingModel(cfg, device=cuda,
+                           generator=torch.Generator().manual_seed(0))
+    vols = [_pair((19, 40, 44), seed=s)[0] for s in (1, 2)]
+    kw = dict(alpha_range=[1 / 3, 2 / 3], latent_interp="lanczos3")
+    create_super_volumes(serving, vols, **kw)
+    model = VanillaACAI(cfg)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    state = create_train_state(model.to(cuda), 1e-4)
+    multi = make_multi_train_step(LossConfig(model="ae_combined",
+                                             image_mix_loss_func="mse"),
+                                  device=cuda)
+    batches = _graph_batches(np.random.RandomState(4), WARMUP_STEPS + 2, 2)
+    torch.cuda.synchronize()
+    clear_spans()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(WINDOW):
+            create_super_volumes(serving, vols, **kw)
+            multi(state, batches, 0.3)
+            torch.cuda.synchronize()
+    names = [sp.name for sp in spans()]
+    for name in ("serve.request", "serve.prep", "serve.upload",
+                 "synth.encode", "synth.mix", "synth.decode",
+                 "serve.readback", "serve.finalize"):
+        assert name in names, name
+    assert names.count("build.eager_step") == WARMUP_STEPS
+    assert names.count("build.graph") == 1
+    assert names.count("train.replay") == 2
+    # the profiler's own categories, from its Chrome trace
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    cats = {}
+    for e in json.loads(path.read_text())["traceEvents"]:
+        cats.setdefault(e.get("cat"), set()).add(e.get("name"))
+    work_names = cats["kernel"] | cats["gpu_memcpy"] | cats.get("gpu_memset",
+                                                               set())
+    assert any(n.startswith("sr.") for n in cats["gpu_user_annotation"])
+    assert not work_names & cats["gpu_user_annotation"]
+    # their union in the window, in the arithmetic of TraceSummary
+    dev = torch.autograd.DeviceType.CUDA
+    events = prof.profiler.kineto_results.events()
+
+    def seconds(e):
+        start = e.start_ns() * 1e-9
+        return start, start + e.duration_ns() * 1e-9
+
+    (lo, hi), = [seconds(e) for e in events
+                 if e.name() == WINDOW and e.device_type() != dev]
+    work = sorted((max(s, lo), min(e, hi)) for s, e in (
+        seconds(e) for e in events
+        if e.device_type() == dev and e.name() in work_names))
+    merged = []
+    for s, e in work:
+        if e <= s:
+            continue
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    busy = sum(e - s for s, e in merged)
+    assert busy > 0
+    assert TraceSummary(prof).busy_s == pytest.approx(busy, rel=1e-12)
 
 
 def test_failed_capture_raises_without_eager_fallback(cuda, monkeypatch):
