@@ -50,6 +50,8 @@ path), as JAX's ``:656-681,926-1022``. ``packed=True`` decodes through
 """
 from __future__ import annotations
 
+import threading
+import weakref
 from functools import partial
 from typing import Dict, Optional, Sequence
 
@@ -424,6 +426,11 @@ SLICE_BUCKETS = (8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512)
 # 80 GB H100 waits for a measurement (ROADMAP.md).
 _DECODE_ACT_BUDGET_BYTES = 1 << 30
 _BATCH_ACT_BUDGET_BYTES = 4 << 30
+# Page-locked host bytes that returned volumes still alive may hold
+# before a volume is read back into pageable memory instead: a caller
+# that keeps many volumes (create_hr_images, a notebook) pins no more
+# than this (the allocator rounds each block up to a power of two).
+_PINNED_OUTPUT_BUDGET_BYTES = 2 << 30
 
 
 def bucket_size(k: int) -> int:
@@ -507,10 +514,10 @@ def _combo_volume(trainer, kept: torch.Tensor, alphas: torch.Tensor,
                   k_true: int, use_original: bool, decode_batch,
                   latent_interp: str, decodes_labels: bool,
                   num_devices: int = 1) -> torch.Tensor:
-    """The AE+CAISR combo's interleaved [S', P, H, W] volume (unclamped;
-    ``_finalize_volume_outputs`` clamps the image plane): the SR model
-    synthesizes (slice-sharded over ``num_devices``), the primary
-    reconstructs (or the kept slices stay)."""
+    """The AE+CAISR combo's interleaved [S', P, H, W] volume, its image
+    plane clamped to [0, 1] on the device as the synthesis core's is: the
+    SR model synthesizes (slice-sharded over ``num_devices``), the
+    primary reconstructs (or the kept slices stay)."""
     core = _get_core(trainer, decode_batch, latent_interp, trainer.params_sr,
                      num_devices)
     interp = core(kept, alphas, use_original=True)["interp"]
@@ -529,7 +536,8 @@ def _combo_volume(trainer, kept: torch.Tensor, alphas: torch.Tensor,
         else:
             recon = pred[:, :n_ch]
     dtype = torch.promote_types(recon.dtype, interp.dtype)
-    return interleave_volume(recon.to(dtype), interp.to(dtype))
+    return clip_with_label_channel(
+        interleave_volume(recon.to(dtype), interp.to(dtype)), n_ch == 2)
 
 
 def _check_serving_options(trainer, readback_dtype) -> None:
@@ -570,13 +578,78 @@ def _pad_kept(kept: np.ndarray, k_pad: int, latent_interp: str) -> np.ndarray:
                   mode="edge" if latent_interp != "linear" else "constant")
 
 
+class _LiveBytes:
+    """The bytes of the arrays handed to ``track``, each counted until
+    the object that owns its memory (the array's base) is freed. The
+    caching host allocator's ``active_bytes`` stat does not fall when a
+    block is freed (torch 2.11), so the readback keeps its own count."""
+
+    def __init__(self):
+        self.total = 0
+        self._lock = threading.Lock()
+
+    def _add(self, n: int) -> None:
+        with self._lock:
+            self.total += n
+
+    def track(self, array: np.ndarray) -> np.ndarray:
+        self._add(array.nbytes)
+        owner = array if array.base is None else array.base
+        weakref.finalize(owner, self._add, -array.nbytes)
+        return array
+
+
+_PINNED_OUTPUTS = _LiveBytes()
+
+
 def _readback(vol: torch.Tensor, readback_dtype) -> np.ndarray:
-    """Device → host float32 numpy; 'bfloat16' casts on the device and
-    widens on the host (half the transfer)."""
-    with span("serve.readback"):
+    """Device → host float32 numpy array of its own, C-contiguous;
+    'bfloat16' casts on the device and widens on the host (half the
+    transfer).
+
+    A float32 CUDA tensor lands, by one asynchronous copy, in a
+    page-locked block of torch's caching host allocator, and the array
+    returned is that block: it goes back to the allocator only when the
+    caller has dropped every array on it, so a reused block never aliases
+    a returned volume. Past ``_PINNED_OUTPUT_BUDGET_BYTES`` held by
+    such arrays the copy lands in pageable memory. The
+    ``serve.readback`` span counts ``pinned`` (1 for a page-locked copy)
+    and ``host_allocs`` (1 where that copy took a new block)."""
+    with span("serve.readback", pinned=0, host_allocs=0) as rec:
         if readback_dtype == "bfloat16":
             return vol.to(torch.bfloat16).cpu().to(torch.float32).numpy()
-        return vol.to(torch.float32).cpu().numpy()
+        vol = vol.to(torch.float32)
+        if vol.device.type != "cuda":
+            # the core's own output: the copy gives the volume its memory
+            return vol.numpy().copy()
+        if (_PINNED_OUTPUTS.total + vol.nbytes
+                > _PINNED_OUTPUT_BUDGET_BYTES):
+            return vol.cpu().numpy()
+        allocs = (torch.cuda.host_memory_stats().get("num_host_alloc", 0)
+                  if rec is not None else 0)
+        host = torch.empty(vol.shape, dtype=torch.float32, pin_memory=True)
+        if rec is not None:
+            rec.counts.update(pinned=1, host_allocs=int(
+                torch.cuda.host_memory_stats().get("num_host_alloc", 0)
+                - allocs))
+        host.copy_(vol, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(vol.device))
+        done.synchronize()
+        return _PINNED_OUTPUTS.track(host.numpy())
+
+
+def _read_volume(vol: torch.Tensor, readback_dtype) -> tuple:
+    """(image [S', H, W], class ids [S', H, W] or None) of an interleaved
+    [S', P, H, W] volume on the device, clamped there: the image plane
+    through ``_readback``, the decoded class ids of a MultiChannelAE
+    (P = 2) as float32 (small integers, exact in either readback
+    dtype)."""
+    ids = None
+    if vol.shape[1] >= 2:
+        with span("serve.readback"):
+            ids = vol[:, 1].to(torch.float32).cpu().numpy()
+    return _readback(vol[:, 0], readback_dtype), ids
 
 
 def create_super_volume(trainer, images, alpha_range=None,
@@ -696,32 +769,33 @@ def _one_volume(trainer, images, labels, *, alpha_range, use_original,
         # and the decoded labels' plane of a MultiChannelAE
         planes = 2 if decodes_labels else 1
         vol = out["volume"][:(k_true - 1) * (a_n + 1) + 1, :planes]
-    new_volume = _readback(vol, readback_dtype)
+    image, ids = _read_volume(vol, readback_dtype)
     with span("serve.finalize"):
         return _finalize_volume_outputs(
-            new_volume, orig_images=orig_images, labels=labels,
+            image, ids, orig_images=orig_images, labels=labels,
             alpha_range=alpha_range, downsample_steps=downsample_steps,
             generate_inbetween_slices=generate_inbetween_slices,
             remain=remain, k_true=k_true, orig_num_slices=orig_num_slices)
 
 
-def _finalize_volume_outputs(new_volume: np.ndarray, *, orig_images, labels,
-                             alpha_range, downsample_steps,
-                             generate_inbetween_slices, remain: int,
-                             k_true: int,
+def _finalize_volume_outputs(new_volume: np.ndarray,
+                             dec_labels: Optional[np.ndarray], *,
+                             orig_images, labels, alpha_range,
+                             downsample_steps, generate_inbetween_slices,
+                             remain: int, k_true: int,
                              orig_num_slices: int) -> Dict[str, np.ndarray]:
     """Host post-processing shared by create_super_volume(s): verbatim
-    tail re-append, clamp, pred_alphas, and the labels: decoded by a
-    MultiChannelAE, else riding along. ``new_volume`` is [S', P, H, W]
-    with the kept-slice padding stripped (S' =
-    (k_true-1)*(len(alpha_range)+1)+1): the image plane, and with P = 2
-    the decoded class ids."""
+    tail re-append, pred_alphas, and the labels: decoded by a
+    MultiChannelAE, else riding along. ``new_volume`` is the image plane
+    [S', H, W] as read back, clamped on the device, with the kept-slice
+    padding stripped (S' = (k_true-1)*(len(alpha_range)+1)+1), and is
+    returned as given unless a tail is re-appended; ``dec_labels`` the
+    decoded class ids [S', H, W], or None. The tail, which the device
+    never saw, is the one part clamped here."""
     a_n = int(len(alpha_range))
-    dec_labels = new_volume[:, 1] if new_volume.shape[1] >= 2 else None
-    new_volume = new_volume[:, 0]
     if generate_inbetween_slices and remain != 0:
-        new_volume = np.concatenate([new_volume, orig_images[-remain:]],
-                                    axis=0)
+        new_volume = np.concatenate(
+            [new_volume, np.clip(orig_images[-remain:], 0.0, 1.0)], axis=0)
         if dec_labels is not None:
             # the verbatim tail keeps its input labels (zeros without)
             tail = (np.asarray(labels, np.float32)[-remain:]
@@ -729,7 +803,6 @@ def _finalize_volume_outputs(new_volume: np.ndarray, *, orig_images, labels,
                     else np.zeros((remain,) + dec_labels.shape[1:],
                                   dec_labels.dtype))
             dec_labels = np.concatenate([dec_labels, tail], axis=0)
-    new_volume = np.clip(new_volume, 0.0, 1.0)
     k1 = k_true - 1
     pred_alphas = np.repeat(alpha_range[None, :], k1, axis=0).reshape(-1)
 
@@ -886,13 +959,14 @@ def _batched_volumes(trainer, images_list: list, labels_list: list,
             else:
                 vols = core(stack, alphas_dev, use_original=use_original,
                             interleave=True)["volume"]
-            s_max = max((it[1]["k_true"] - 1) * (a_n + 1) + 1 for it in part)
-            vols = _readback(vols[:, :s_max, :planes], readback_dtype)
             for j, (_kept, meta) in enumerate(part):
+                # each volume's valid prefix in a block of its own
                 s_j = (meta["k_true"] - 1) * (a_n + 1) + 1
+                image, ids = _read_volume(vols[j, :s_j, :planes],
+                                          readback_dtype)
                 with span("serve.finalize"):
                     results[meta["index"]] = _finalize_volume_outputs(
-                        vols[j, :s_j], orig_images=meta["orig_images"],
+                        image, ids, orig_images=meta["orig_images"],
                         labels=meta["labels"], alpha_range=alpha_range,
                         downsample_steps=downsample_steps,
                         generate_inbetween_slices=generate_inbetween_slices,

@@ -14,8 +14,8 @@ The span sites, by layer:
   host's grid, label channel and padding), ``serve.upload``,
   ``synth.encode`` / ``synth.mix`` / ``synth.decode``
   (``SynthesisStages``), ``serve.readback`` (the wait for the card and
-  the copy to the host), ``serve.finalize`` (the host's clamp, tail and
-  labels);
+  the copy to the host; ``pinned``, ``host_allocs``), ``serve.finalize``
+  (the host's tail and labels);
 - scoring (``evaluate/sweep.py``): ``score.request`` (an
   ``evaluate_prepared`` call; ``volumes``, the chunks' rows),
   ``score.upload``, ``score.ssim`` / ``score.psnr`` / ``score.vif``,

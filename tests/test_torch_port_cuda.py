@@ -183,6 +183,73 @@ def test_serve_and_score_on_card_match_cpu(cuda):
                                    atol=1e-6, err_msg=key)
 
 
+def test_serving_reads_back_into_page_locked_blocks(cuda, monkeypatch):
+    """Two OASIS-size volumes a request (30 × 220², 6 → 1 mm, lanczos3):
+    each is read back into a page-locked block of its own (``pinned`` 2);
+    once a request's arrays are dropped, the next request takes their
+    cached blocks (``host_allocs`` 0); a kept request's arrays are
+    unchanged after three later requests; a page-locked readback equals a
+    pageable one bit for bit; past the budget the readback is pageable
+    (``pinned`` 0)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from superresolution_aniso_mri_tpu_torch.infer import (
+        ServingModel, create_super_volumes)
+    from superresolution_aniso_mri_tpu_torch.infer import super_volume as sv
+    from superresolution_aniso_mri_tpu_torch.models import AEConfig
+    from superresolution_aniso_mri_tpu_torch.utils.profiling import (
+        clear_spans, spans)
+
+    cfg = AEConfig(width=64, latent_width=16, depth=32, latent=128)
+    serving = ServingModel(cfg, device=cuda,
+                           generator=torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(0)
+    vols = [rng.rand(30, 220, 220).astype(np.float32) for _ in range(2)]
+    kw = dict(alpha_range=np.linspace(0, 1, 7)[1:-1], use_original=True,
+              latent_interp="lanczos3")
+
+    def request():
+        """(images, Σ pinned, Σ host_allocs) of one traced request."""
+        clear_spans()
+        with profile(activities=[ProfilerActivity.CPU]):
+            images = [r["upsampled_image"]
+                      for r in create_super_volumes(serving, vols, **kw)]
+        reads = [s.counts for s in spans() if s.name == "serve.readback"]
+        return (images, sum(c["pinned"] for c in reads),
+                sum(c["host_allocs"] for c in reads))
+
+    kept, pinned, _ = request()
+    assert pinned == 2
+    assert "num_host_alloc" in torch.cuda.host_memory_stats()
+    assert [im.shape for im in kept] == [(175, 220, 220)] * 2
+    for im in kept:
+        assert im.dtype == np.float32
+        assert im.flags.c_contiguous and im.flags.writeable
+    was = [im.copy() for im in kept]
+    dropped, pinned, _ = request()
+    assert pinned == 2
+    live = sv._PINNED_OUTPUTS.total
+    del dropped
+    assert sv._PINNED_OUTPUTS.total == live - 2 * kept[0].nbytes
+    third, pinned, allocs = request()
+    assert (pinned, allocs) == (2, 0)
+    _, pinned, _ = request()
+    assert pinned == 2
+    for im, before in zip(kept, was):
+        np.testing.assert_array_equal(im, before)
+    # bit for bit against a pageable copy, a strided plane included
+    vol = torch.rand(175, 2, 220, 220, device=cuda) * 3.0 - 1.0
+    for plane in (vol[:, 0].contiguous(), vol[:, 1]):
+        np.testing.assert_array_equal(sv._readback(plane, None),
+                                      plane.cpu().numpy())
+    monkeypatch.setattr(sv, "_PINNED_OUTPUT_BUDGET_BYTES", 1 << 20)
+    pageable, pinned, allocs = request()
+    assert (pinned, allocs) == (0, 0)
+    for im in pageable:
+        assert im.flags.c_contiguous and im.flags.writeable
+    np.testing.assert_allclose(pageable[0], third[0], atol=1e-5)
+
+
 def test_train_steps_on_card_match_cpu(cuda):
     """3 float32 train steps (TF32 off) of a small ae_combined config with
     lanczos3 latent mixing and the lap loss, from the same weights and

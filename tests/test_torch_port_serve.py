@@ -446,3 +446,177 @@ def test_port_sources_import_nothing_of_the_jax_package():
             "convert_lpips_weights.py", "roofline.py", "bench.py",
             "infer_roofline.py", "train_bench.py", "pipeline_bench.py",
             "loader_bench.py"} <= set(scanned)
+
+
+# ---------------------------------------------------------------------------
+# the output path: the image plane clamped on the device, read back into an
+# array of each volume's own; the host clips only the verbatim tail
+# ---------------------------------------------------------------------------
+
+# no sigmoid: the decoded slices leave [0, 1], so the clamp shows
+RAW = dict(SMALL, use_sigmoid=False)
+
+
+@pytest.fixture(scope="module")
+def raw_model():
+    return ServingModel(AEConfig(**RAW), device="cpu",
+                        generator=torch.Generator().manual_seed(3))
+
+
+def _serve(call, model, vols, labels=None, **kw):
+    """The results of ``vols`` through one entry point: ``one``
+    (create_super_volume of the first), ``volumes1`` / ``volumes2``
+    (create_super_volumes of the first / both: the per-volume and the
+    batched path)."""
+    if call == "one":
+        return [create_super_volume(
+            model, vols[0], labels=None if labels is None else labels[0],
+            **kw)]
+    n = 1 if call == "volumes1" else len(vols)
+    return create_super_volumes(
+        model, vols[:n], labels_list=None if labels is None else labels[:n],
+        **kw)
+
+
+def _host_clipped(monkeypatch, serve):
+    """(raw, want): ``serve()`` with the device's clamp off, and its
+    results with each image then clipped on the host, as the port served
+    them while the host held the clamp (the class ids as they come)."""
+    with monkeypatch.context() as mp:
+        mp.setattr(tsv, "clip_with_label_channel", lambda vol, _ids: vol)
+        raw = serve()
+    return raw, [dict(r, upsampled_image=np.clip(r["upsampled_image"], 0.0,
+                                                 1.0)) for r in raw]
+
+
+def _out_of_range(results):
+    return any(((r["upsampled_image"] < 0) | (r["upsampled_image"] > 1)).any()
+               for r in results)
+
+
+CALLS = ["one", "volumes1", "volumes2"]
+
+
+@pytest.mark.parametrize("call", CALLS)
+@pytest.mark.parametrize("latent_interp", ["linear", "lanczos3"])
+def test_device_clamp_returns_the_host_clipped_values(raw_model, monkeypatch,
+                                                      call, latent_interp):
+    vols = [_volume(20 + i) for i in range(2)]
+
+    def serve():
+        return _serve(call, raw_model, vols, latent_interp=latent_interp,
+                      **INBETWEEN)
+
+    raw, want = _host_clipped(monkeypatch, serve)
+    assert _out_of_range(raw)
+    got = serve()
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g["upsampled_image"],
+                                      w["upsampled_image"])
+        np.testing.assert_array_equal(g["pred_alphas"], w["pred_alphas"])
+
+
+@pytest.mark.parametrize("use_original", [False, True])
+def test_combo_volume_is_clamped_on_the_device(monkeypatch, use_original):
+    """The AE+CAISR combo, its SR decoder pushed outside [0, 1]: the
+    synthesized slices come back clamped, with the values of the host
+    clip."""
+    from superresolution_aniso_mri_tpu_torch.models import (build_model,
+                                                            reset_parameters)
+    from superresolution_aniso_mri_tpu_torch.train import Trainer
+
+    trainer = Trainer(dict(model="ae_combined", dataset="OASIS", **RAW,
+                           lr=1e-4, seed=0), eval_mode=True, device="cpu")
+    sr = build_model("VanillaACAI", trainer.model_config)
+    reset_parameters(sr, torch.Generator().manual_seed(4))
+    sr.eval().requires_grad_(False)
+    decode = sr.decode
+    sr.decode = lambda z: 4.0 * decode(z) - 1.5
+    trainer.params_sr = sr
+    # the primary's predict takes no stride padding: a 32 x 32 in-plane
+    img = _volume(30, h=32, w=32)
+
+    def serve():
+        return [create_super_volume(trainer, img, use_original=use_original,
+                                    **INBETWEEN)]
+
+    raw, want = _host_clipped(monkeypatch, serve)
+    assert _out_of_range(raw)
+    got = serve()[0]["upsampled_image"]
+    np.testing.assert_array_equal(got, want[0]["upsampled_image"])
+    assert 0.0 <= got.min() and got.max() <= 1.0
+
+
+@pytest.mark.parametrize("call", ["one", "volumes2"])
+def test_an_out_of_range_verbatim_tail_is_clipped(raw_model, call):
+    vols = [_volume(40 + i) for i in range(2)]
+    for v in vols:
+        v[-1] = np.linspace(-0.5, 1.5, v[-1].size,
+                            dtype=np.float32).reshape(v[-1].shape)
+    got = _serve(call, raw_model, vols, **INBETWEEN)
+    for v, g in zip(vols, got):
+        np.testing.assert_array_equal(g["upsampled_image"][-1],
+                                      np.clip(v[-1], 0.0, 1.0))
+
+
+@pytest.mark.parametrize("call", ["one", "volumes2"])
+def test_multichannel_class_ids_are_never_clamped(monkeypatch, call):
+    model = ServingModel(AEConfig(**RAW, colors=2, nclasses=4), device="cpu",
+                         generator=torch.Generator().manual_seed(5),
+                         ae_class="MultiChannelAE")
+    rng = np.random.RandomState(6)
+    vols = [_volume(50 + i) for i in range(2)]
+    labels = [rng.randint(0, 4, v.shape) for v in vols]
+
+    def serve():
+        # no verbatim tail: every returned slice is read back
+        return _serve(call, model, vols, labels=labels, downsample_steps=3,
+                      alpha_range=[1 / 3, 2 / 3])
+
+    _, want = _host_clipped(monkeypatch, serve)
+    got = serve()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g["upsampled_image"],
+                                      w["upsampled_image"])
+        np.testing.assert_array_equal(g["upsampled_labels"],
+                                      w["upsampled_labels"])
+        # decoded ids above 1 survive: the clamp leaves the id plane alone
+        assert g["upsampled_labels"].max() > 1
+        # the image plane, read apart from the ids, is an array of its own
+        assert g["upsampled_image"].flags.c_contiguous
+
+
+@pytest.mark.parametrize("call", CALLS)
+def test_returned_images_are_arrays_of_their_own(raw_model, call):
+    """Float32, C-contiguous and writable; a write into one volume leaves
+    the request's other volume and a second request's volumes
+    unchanged."""
+    vols = [_volume(60 + i) for i in range(2)]
+    kw = dict(latent_interp="lanczos3", alpha_range=[0.25, 0.5, 0.75])
+    images = [r["upsampled_image"] for _ in range(2)
+              for r in _serve(call, raw_model, vols, **kw)]
+    for im in images:
+        assert im.dtype == np.float32
+        assert im.flags.c_contiguous and im.flags.writeable
+    before = [im.copy() for im in images]
+    images[0][...] = 7.0
+    for im, was in zip(images[1:], before[1:]):
+        np.testing.assert_array_equal(im, was)
+
+
+def test_live_bytes_count_an_array_until_its_memory_is_freed():
+    """The page-locked budget's count: a tracked array's bytes stay
+    counted while the array or a view of it lives."""
+    live = tsv._LiveBytes()
+    t = torch.zeros(4, 5)
+    arr = live.track(t.numpy())
+    del t
+    assert live.total == 80
+    view = arr[1:]
+    del arr
+    assert live.total == 80
+    del view
+    assert live.total == 0
+    live.track(np.zeros(3, np.float32))
+    assert live.total == 0

@@ -173,6 +173,9 @@ def test_serving_emits_its_stages_inside_the_request(serving_model,
     assert set(_names(stored)) == SERVE_STAGES | {"serve.request",
                                                   "build.core"}
     assert _names(stored).count("serve.finalize") == volumes
+    # the CPU reads back into pageable memory
+    assert [s.counts for s in stored if s.name == "serve.readback"] == [
+        {"pinned": 0, "host_allocs": 0}] * volumes
     again, stored = _traced(serve)
     assert not [n for n in _names(stored) if n.startswith("build.")]
     assert SERVE_STAGES <= set(_names(stored))
@@ -260,7 +263,8 @@ def _store(kind):
                   ("serve.prep", 6.0, 0, {}),
                   ("serve.upload", 2.0, 0, {}),
                   ("serve.request", 40.0, 0, {"volumes": 1}),
-                  ("serve.readback", 12.0, 3, {}),
+                  ("serve.readback", 12.0, 3, {"pinned": 1,
+                                                "host_allocs": 0}),
                   ("serve.finalize", 14.0, 0, {}),
                   ("build.core", 1.0, 0, {}),
                   ("build.kernel", 1.0, 0, {})],
@@ -283,6 +287,7 @@ READERS = [
     ("serve.prep_host_ms_per_volume", "serve", 4.0),
     ("serve.readback_host_ms_per_volume", "serve", 6.0),
     ("serve.finalize_host_ms_per_volume", "serve", 7.0),
+    ("serve.readback_pinned_share", "serve", 50.0),
     ("program.builds.train", "train", 1),
     ("program.builds.score", "score", 0),
     ("program.builds.serve", "serve", 2),
@@ -304,3 +309,15 @@ def test_span_readers(metric, kind, value, monkeypatch):
             assert got is None, other
     monkeypatch.setattr(profiling, "_STORE", [])
     assert read(harness.Record(kind, 1.0, {}, {}, None)) is None
+
+
+def test_pinned_share_is_silent_without_the_count(monkeypatch):
+    """Readback spans that count no ``pinned`` (a program that reads
+    back into pageable memory alone) give no share."""
+    store = _store("serve")
+    for sp in store:
+        if sp.name == "serve.readback":
+            sp.counts = {}
+    monkeypatch.setattr(profiling, "_STORE", store)
+    read = harness.reader("serve.readback_pinned_share")
+    assert read(harness.Record("serve", 1.0, {}, {}, None)) is None
