@@ -408,10 +408,13 @@ class Trainer:
         b = batch["slice_between"].shape[0]
         kw = dict(generator=self.noise_generator, device=self.device)
         if self.family == "acai":
-            return {**batch, "noise_alpha": torch.rand(b, **kw) / 2.0}
+            with span("train.noise", values=b):
+                return {**batch, "noise_alpha": torch.rand(b, **kw) / 2.0}
         if self.family == "vae":
             width = self._ae_model().encoder_mu.weight.shape[0]
-            return {**batch, "noise_eps": torch.randn(2 * b, width, **kw)}
+            with span("train.noise", values=2 * b * width):
+                return {**batch,
+                        "noise_eps": torch.randn(2 * b, width, **kw)}
         return batch
 
     def train(self, batch: Dict[str, torch.Tensor]):

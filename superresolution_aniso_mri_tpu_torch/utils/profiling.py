@@ -22,7 +22,9 @@ The span sites, by layer:
   ``score.readback``, ``score.means``;
 - training: ``train.dispatch`` (``Trainer.train_many``; ``steps``),
   ``train.replay`` (a CUDA graph replay with its copies),
-  ``train.ema``, ``data.gather`` (``DeviceCachedSampler``),
+  ``train.ema``, ``train.noise`` (``Trainer.draw_noise`` of the families
+  that draw a step's noise; ``values``, the numbers drawn),
+  ``data.gather`` (``DeviceCachedSampler``),
   ``data.augment`` (``data.device_batch``);
 - building: ``build.graph`` (a CUDA graph capture), ``build.eager_step``
   (an eager warm-up step of a new batch signature), ``build.core`` (a

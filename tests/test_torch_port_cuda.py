@@ -651,6 +651,95 @@ def test_family_graph_replay_matches_eager_steps(cuda, model, monkeypatch):
         assert float((p - q).abs().max()) <= 1e-6 * float(q.abs().max()), k
 
 
+def _vae_recipe_batches(rng, n, pairs=16, size=64):
+    """``n`` batches of the OASIS recipe's shape on the card."""
+    out = []
+    for _ in range(n):
+        a_to = rng.uniform(0.1, 0.9, pairs).astype(np.float32)
+        batch = {"image": rng.rand(2 * pairs, 1, size, size),
+                 "slice_between": rng.rand(pairs, 1, size, size),
+                 "alpha_from": 1 - a_to, "alpha_to": a_to,
+                 "is_inbetween": (rng.rand(pairs) > 0.2)}
+        out.append({k: torch.from_numpy(np.asarray(v, np.float32)).cuda()
+                    for k, v in batch.items()})
+    return out
+
+
+def test_vae_graph_replay_matches_eager_steps_at_recipe_widths(cuda,
+                                                               monkeypatch):
+    """``vae_combined`` at the OASIS recipe's widths (two 32,768² heads,
+    2.15 G parameters), 16 pairs of 64²: after the warm-up steps and the
+    capture, 4 replays equal 4 eager steps from the same state, batches
+    and draws (1e-6 relative), as ``test_family_graph_replay_matches_
+    eager_steps`` holds at a small width. The state that the eager steps
+    start from is kept in host memory (the card holds one state of 34 GB
+    and the step's memory, not two). Prints the peak memory of the
+    warm-up and capture, and of the replays."""
+    import gc
+
+    from superresolution_aniso_mri_tpu_torch.train import (
+        Trainer, make_multi_train_step, make_train_step)
+    from superresolution_aniso_mri_tpu_torch.train import steps as steps_mod
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr = Trainer(dict(model="vae_combined", lr=1e-5, vae_beta=200.0,
+                      lamb=1.0, image_mix_loss_func="mse", width=64,
+                      latent_width=16, depth=32, latent=128,
+                      use_batchnorm=True, use_sigmoid=True), device=cuda)
+    assert tr.model.encoder_mu.weight.shape == (32768, 32768)
+    state = tr.state
+    rng = np.random.RandomState(6)
+    multi = make_multi_train_step(tr.loss_config, device=cuda)
+    peaks = {}
+    torch.cuda.reset_peak_memory_stats(cuda)
+    multi(state, [tr.draw_noise(b) for b in _vae_recipe_batches(
+        rng, steps_mod.WARMUP_STEPS + 1)], 0.3)
+    peaks["warm-up and capture"] = (torch.cuda.max_memory_allocated(cuda),
+                                    torch.cuda.max_memory_reserved(cuda))
+    def host(tensors):
+        return {k: v.to("cpu", copy=True) for k, v in tensors.items()}
+
+    start = (host(state.model.state_dict()), host(state.opt_state.mu),
+             host(state.opt_state.nu),
+             state.opt_state.count, state.opt_state.schedule_count,
+             state.step)
+    batches = [tr.draw_noise(b) for b in _vae_recipe_batches(rng, 4)]
+    torch.cuda.reset_peak_memory_stats(cuda)
+    _, got = multi(state, batches, 0.3)
+    torch.cuda.synchronize(cuda)
+    peaks["4 replays"] = (torch.cuda.max_memory_allocated(cuda),
+                          torch.cuda.max_memory_reserved(cuda))
+    got, replayed = host(got), host(state.model.state_dict())
+    # the graph and its pool go before the eager steps take their memory
+    del multi
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        for k, v in state.model.state_dict().items():
+            v.copy_(start[0][k])
+        for k in state.opt_state.mu:
+            state.opt_state.mu[k].copy_(start[1][k])
+            state.opt_state.nu[k].copy_(start[2][k])
+    (state.opt_state.count, state.opt_state.schedule_count,
+     state.step) = start[3:]
+    del start
+    eager = make_train_step(tr.loss_config)
+    for i, b in enumerate(batches):
+        _, want = eager(state, b, 0.3)
+        for k, v in want.items():
+            assert abs(float(got[k][i]) - float(v)) <= 1e-6 * abs(float(v)), k
+    for k, p in state.model.state_dict().items():
+        q = replayed[k].to(cuda)
+        assert float((p - q).abs().max()) <= 1e-6 * float(p.abs().max()), k
+        del q
+    for name, (alloc, reserved) in peaks.items():
+        print(f"vae_combined recipe widths, {name}: peak "
+              f"{alloc / 1e9:.2f} GB allocated, {reserved / 1e9:.2f} GB "
+              f"reserved")
+
+
 def _labeled_batches(rng, n, mask=True):
     """(image, label) batches on the card, with a loss mask."""
     out = []

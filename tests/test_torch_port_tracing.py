@@ -243,6 +243,37 @@ def test_training_emits_dispatch_ema_gather_and_augment():
         assert stored[4].counts == {"steps": 2}
 
 
+
+@pytest.mark.parametrize("model", ["vae_combined", "ae_combined"])
+def test_noise_span_once_a_step_that_draws(model):
+    """``Trainer.draw_noise`` under a profiler: one ``train.noise`` span a
+    step inside the dispatch, counting the numbers drawn (the VAE's
+    2B x 384 reparametrisation draws at these widths); none for
+    ``ae_combined``, which draws nothing."""
+    from superresolution_aniso_mri_tpu_torch.train import Trainer
+
+    trainer = Trainer(dict(MODEL, model=model, vae_beta=1.0,
+                           image_mix_loss_func="mse", batch_size=2),
+                      device="cpu")
+    rng = np.random.RandomState(3)
+    batches = [{"image": torch.rand(4, 1, 16, 16),
+                "slice_between": torch.rand(2, 1, 16, 16),
+                "alpha_from": torch.full((2,), 0.5),
+                "alpha_to": torch.full((2,), 0.5),
+                "is_inbetween": torch.from_numpy(
+                    (rng.rand(2) > 0.5).astype(np.float32))}
+               for _ in range(3)]
+    _, stored = _traced(lambda: trainer.train_many(batches))
+    noise = [s for s in stored if s.name == "train.noise"]
+    if model == "ae_combined":
+        assert noise == []
+        return
+    assert len(noise) == 3
+    dispatch = _names(stored).index("train.dispatch")
+    for s in noise:
+        assert s.parent == dispatch
+        assert s.counts == {"values": 2 * 2 * 6 * 8 * 8}
+
 def _store(kind):
     """A hand-built store of one traced window of ``kind`` (durations in
     ms: 1 ns = 1e-6 ms, so a span of ``d`` ms is ``d * 1e6`` ns)."""
